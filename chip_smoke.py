@@ -37,8 +37,9 @@ result line):
    ``vocode_mels``; hold a small float32 audio request on the card against
    the CPU (TF32 off);
 5. hold the training attention kernels (K2, forward and backward) against
-   their plain versions at the training step's shapes, f32 and bf16, at
-   dropout rates 0 and 0.1 (bit-equal masks), and time them beside
+   their plain versions at the flagship and wide training shapes (E=128
+   and E=512, D=16, 64 and 128), f32 and bf16, at dropout rates 0 and
+   0.1 (bit-equal masks), and time them beside
    ``scaled_dot_product_attention``; the same for the training conv-FF
    kernels (K3), with a check that two backward runs give bit-identical
    weight gradients. At bf16 a control runs the same kernels with their
@@ -47,9 +48,20 @@ result line):
    16, accumulation 3, L=128 symbols, T=768 frames) through
    ``make_train_step``: 2 warm-up and 5 timed steps, the K2 and K3
    launch counters read around the timed ones (12 x 3 per step each, K1
-   none); profile one step; then hold a small float32 step on the card
-   against the same step on the CPU (loss, gradient norm, gradients);
-7. print ``{"kernels": [...]}``, the nvidia-smi line, and last
+   and K4 none); profile one step; then hold a small float32 step on the
+   card against the same step on the CPU (loss, gradient norm,
+   gradients);
+7. the wide-head ablation (``wide_head_hparams``: E=512, 4 heads of
+   D=128, conv channels 512; K2 at E=512 is held in phase 5): hold the
+   C-blocked conv-FF kernels (K4) against their plain versions at the
+   wide step's shapes and the port plan's C block (f32 max abs, bf16
+   relative L2 against a control that must fail, bit-identical weight
+   gradients over two backward runs, edge shapes: a partial tile with a
+   short row, E=256, one C block) and time them; take 2 + 5 wide steps
+   as in 6 (K2 and K4 12 x 3 per step each, K3 and K1 none) and profile
+   one; hold a small float32 wide step (E=256, 2 heads of 128, C=256) on
+   the card against the CPU;
+8. print ``{"kernels": [...]}``, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 Needs CUDA: it exits with an error when ``torch.cuda.is_available()`` is
@@ -74,7 +86,8 @@ from daft_exprt_tpu_torch.models.daft_exprt import DaftExprt
 from daft_exprt_tpu_torch.models.modules import FFTBlock, init_parameters
 from daft_exprt_tpu_torch.ops import _build
 from daft_exprt_tpu_torch.ops.attention_train import attention_core
-from daft_exprt_tpu_torch.ops.conv_ff_train import conv_ff_train
+from daft_exprt_tpu_torch.ops.conv_ff_train import (conv_ff_train,
+                                                    conv_ff_train_blocked)
 from daft_exprt_tpu_torch.ops.fft_block import (fft_block_plain,
                                                 fused_fft_block)
 from daft_exprt_tpu_torch.ops.mrf_vocoder import fused_mrf
@@ -117,6 +130,24 @@ def flagship_hparams(**overrides):
                        output_directory=str(ROOT / "build"),
                        language="english", speakers=FLAGSHIP_SPEAKERS,
                        **overrides)
+
+
+def wide_head_hparams(**overrides):
+    """The wide-head ablation (``tools/train_profile.py``
+    ``_wide_head_hparams``): E=512 with 4 heads of 128 and conv channels
+    512 in every FFT block, the local prosody predictor at 1024 channels,
+    on the flagship's other settings. Module dicts in ``overrides``
+    replace these."""
+    wide = dict(hidden_embed_dim=512, attn_nb_heads=4, attn_dropout=0.1,
+                conv_kernel=3, conv_channels=512, conv_dropout=0.1)
+    modules = dict(
+        prosody_encoder=dict(wide, nb_blocks=4),
+        phoneme_encoder=dict(wide, nb_blocks=4),
+        local_prosody_predictor={"nb_blocks": 1, "conv_kernel": 3,
+                                 "conv_channels": 1024,
+                                 "conv_dropout": 0.1},
+        frame_decoder=dict(wide, nb_blocks=4))
+    return flagship_hparams(**{**modules, **overrides})
 
 
 def cuda_ms(fn, reps=25, warmup=3):
@@ -238,7 +269,7 @@ def dtype_name(dtype):
     return str(dtype).removeprefix("torch.")
 
 
-def k2_bound(lens, B, T, H, dot_dtype, backward):
+def k2_bound(lens, B, T, H, dot_dtype, backward, E=E):
     """Least time for one K2 call: FLOPs of the valid (query, key) pairs
     (all T query rows against each row's valid keys; 4E per pair forward,
     10E backward, as the Pallas CostEstimates count them) at the card's
@@ -278,8 +309,8 @@ def sdpa_ms(q, k, v, g, lengths, H):
     (backward), on the same bf16 inputs. Used nowhere in the port."""
     import torch.nn.functional as F
 
-    B, T, _ = q.shape
-    D = E // H
+    B, T, width = q.shape
+    D = width // H
 
     def heads(t):
         return t.view(B, T, H, D).transpose(1, 2).detach().requires_grad_()
@@ -297,14 +328,20 @@ def sdpa_ms(q, k, v, g, lengths, H):
         out, (q4, k4, v4), g4, retain_graph=True))
 
 
-# (name, B, T, heads): the training step's K2 launches (flagship batch);
-# edge shapes (untimed): T=48 has TQ=16, so the dropout salts cross query
-# tiles, with a zero-length row; T=2048 is the largest frame bucket
-K2_SHAPES = [("prosody_encoder", 16, 768, 8, None),
-             ("phoneme_encoder", 16, 128, 2, None),
-             ("frame_decoder", 16, 768, 2, None),
-             ("edge_T48", 3, 48, 8, [48, 17, 0]),
-             ("edge_T2048", 2, 2048, 2, [2048, 1500])]
+# (name, B, T, heads, lengths, E): the flagship and wide training steps'
+# K2 launches (batch 16; the wide ablation has 4 heads of D=128 at
+# E=512); edge shapes (untimed): T=48 has TQ=16, so the dropout salts
+# cross query tiles, with a zero-length row; T=2048 is the largest frame
+# bucket
+K2_SHAPES = [("prosody_encoder", 16, 768, 8, None, E),
+             ("phoneme_encoder", 16, 128, 2, None, E),
+             ("frame_decoder", 16, 768, 2, None, E),
+             ("edge_T48", 3, 48, 8, [48, 17, 0], E),
+             ("edge_T2048", 2, 2048, 2, [2048, 1500], E),
+             ("wide_frame_rate", 16, 768, 4, None, 512),
+             ("wide_symbol_rate", 16, 128, 4, None, 512),
+             ("wide_edge_T48", 3, 48, 4, [48, 17, 0], 512)]
+K2_TIMED = ("frame_decoder", "wide_frame_rate")
 # K2 kernel vs plain (see _err): f32 as tests/test_attention_train.py
 # (1e-5 forward, 2e-4 gradients); bf16 max abs 2e-2 of max(1, |ref|) as a
 # coarse bound, and the bf16 relative L2 error below (see _rel_l2)
@@ -319,9 +356,12 @@ RATES = (0.0, 0.1)
 # sits near the geometric mean of the two readings over all checked
 # shapes on an H100 (largest error, smallest control; PERF.md): K2
 # forward 9.2e-5 and 1.6e-3, backward 2.3e-4 and 3.1e-3; K3 forward
-# 1.2e-5 and 1.2e-3, backward 1.5e-4 and 2.8e-3.
+# 1.2e-5 and 1.2e-3, backward 1.5e-4 and 2.8e-3; K4 forward 5.8e-5 and
+# 1.45e-3, backward 4.6e-4 (W1 at the short edge shape, B x T = 80 rows)
+# and 2.8e-3 (NVIDIA H100 80GB HBM3, 700 W).
 BF16_REL_TOL = {("K2", "fwd"): 4e-4, ("K2", "bwd"): 8e-4,
-                ("K3", "fwd"): 1.2e-4, ("K3", "bwd"): 6.5e-4}
+                ("K3", "fwd"): 1.2e-4, ("K3", "bwd"): 6.5e-4,
+                ("K4", "fwd"): 2.9e-4, ("K4", "bwd"): 1.1e-3}
 # the tensors each kernel's internal bf16 roundings feed; the control
 # must exceed the limit on every one of them
 K2_ROUNDED = ("out", "q", "k", "v")
@@ -352,16 +392,17 @@ def _bf16_verdict(kernel, errs, control):
 
 def check_k2():
     """K2 (training attention) forward and backward against their plain
-    versions at the training shapes, f32 and bf16, rates 0 and 0.1; at
-    bf16 the control with rounding off must fail; the decoder bf16 shape
-    timed with the kernel, the plain version and SDPA."""
+    versions at the flagship and wide training shapes, f32 and bf16, rates
+    0 and 0.1; at bf16 the control with rounding off must fail; the
+    flagship decoder and the wide frame-rate bf16 shapes timed with the
+    kernel, the plain version and SDPA."""
     from daft_exprt_tpu_torch.ops.attention_train import (
         attention_backward_cuda, attention_core, attention_forward_cuda,
         attention_plain, attention_plain_backward)
 
     rng = np.random.default_rng(3)
     rows = []
-    for name, B, T, H, lens in K2_SHAPES:
+    for name, B, T, H, lens, width in K2_SHAPES:
         if lens is None:
             lens = rng.integers(T // 2, T, size=B)
             lens[0] = T  # one full row
@@ -369,7 +410,7 @@ def check_k2():
         lengths = _cuda(lens.astype(np.int32))
         seeds = _cuda(rng.integers(-2 ** 31, 2 ** 31, size=B).astype(
             np.int32))
-        q, k, v, g = (_cuda(rng.standard_normal((B, T, E)).astype(
+        q, k, v, g = (_cuda(rng.standard_normal((B, T, width)).astype(
             np.float32)) for _ in range(4))
         for dot_dtype in (torch.float32, torch.bfloat16):
             qd, kd, vd = (t.to(dot_dtype) for t in (q, k, v))
@@ -387,7 +428,7 @@ def check_k2():
                 errs = [_err(a, b, tol_g) for a, b in
                         zip(grads, ref_grads)]
                 err_b = max(e for e, _ in errs)
-                row = {"shape": name, "B": B, "T": T, "H": H,
+                row = {"shape": name, "B": B, "T": T, "E": width, "H": H,
                        "dtype": dtype_name(dot_dtype), "rate": rate,
                        "fwd_err": err_f, "bwd_err": err_b,
                        "tol": [tol_f, tol_g]}
@@ -409,7 +450,7 @@ def check_k2():
                     raise AssertionError(f"K2 disagrees with plain: {row}")
                 if dot_dtype == torch.bfloat16:
                     _bf16_verdict("K2", row["rel_l2"], row["control_rel_l2"])
-                if name == "frame_decoder" and dot_dtype == torch.bfloat16:
+                if name in K2_TIMED and dot_dtype == torch.bfloat16:
                     _, stats = attention_forward_cuda(qd, kd, vd, *args)
                     row["fwd_ms"] = cuda_ms(lambda: attention_forward_cuda(
                         qd, kd, vd, *args))
@@ -422,9 +463,9 @@ def check_k2():
                         lambda: attention_plain_backward(qd, kd, vd, g, *args),
                         reps=5)
                     row["fwd_bound_ms"], row["fwd_bound_by"] = k2_bound(
-                        lens, B, T, H, dot_dtype, False)
+                        lens, B, T, H, dot_dtype, False, E=width)
                     row["bwd_bound_ms"], row["bwd_bound_by"] = k2_bound(
-                        lens, B, T, H, dot_dtype, True)
+                        lens, B, T, H, dot_dtype, True, E=width)
                     if rate == 0.0:
                         row["fwd_library_ms"], row["bwd_library_ms"] = \
                             sdpa_ms(qd, kd, vd, g, lengths, H)
@@ -433,38 +474,75 @@ def check_k2():
     return rows
 
 
-# (name, B, T): the training step's K3 launches (frame rate T=768,
-# symbol rate L=128, flagship batch); edges (untimed): a partial last
-# tile, the largest frame bucket
-K3_SHAPES = [("frame_rate", 16, 768), ("symbol_rate", 16, 128),
-             ("edge_T40", 2, 40), ("edge_T2048", 2, 2048)]
-# K3 kernel vs plain (see _err): f32 as tests/test_conv_ff_train.py (2e-4
-# output, 3e-4 gradients); bf16 max abs 2e-2 of max(1, |ref|) as a coarse
-# bound, and the bf16 relative L2 error (BF16_REL_TOL)
+# (name, B, T, E, C, C block, lengths): the training steps' conv-FF
+# launches (frame rate T=768, symbol rate L=128, batch 16). K3: the
+# flagship (E=128, C=1024); edges (untimed): a partial last tile, the
+# largest frame bucket. K4: the wide ablation (E=512, C=512) at the
+# port plan's block (None); edges (untimed): T not a multiple of the
+# tile with a row whose frames past 13 are zero (as the block's row mask
+# leaves them; its cotangent is zero there too), E=256, and one C block.
+K3_SHAPES = [("frame_rate", 16, 768, E, C, None, None),
+             ("symbol_rate", 16, 128, E, C, None, None),
+             ("edge_T40", 2, 40, E, C, None, None),
+             ("edge_T2048", 2, 2048, E, C, None, None)]
+K4_SHAPES = [("wide_frame_rate", 16, 768, 512, 512, None, None),
+             ("wide_symbol_rate", 16, 128, 512, 512, None, None),
+             ("edge_T40_short_row", 2, 40, 512, 512, None, [40, 13]),
+             ("edge_E256", 2, 64, 256, 256, None, None),
+             ("edge_single_block", 2, 64, 512, 128, 128, None)]
+CONV_FF_TIMED = ("frame_rate", "wide_frame_rate")
+# K3/K4 kernel vs plain (see _err): f32 as tests/test_conv_ff_train.py
+# (2e-4 output, 3e-4 gradients); bf16 max abs 2e-2 of max(1, |ref|) as a
+# coarse bound, and the bf16 relative L2 error (BF16_REL_TOL)
 K3_TOL = {torch.float32: (2e-4, 3e-4), torch.bfloat16: (2e-2, 2e-2)}
+# K4: 2e-4 at f32 for the output and every gradient (of max(1, |ref|))
+CONV_FF_TOL = {"K3": K3_TOL,
+               "K4": {torch.float32: (2e-4, 2e-4),
+                      torch.bfloat16: K3_TOL[torch.bfloat16]}}
 K3_GRADS = ("x", "w1", "b1", "w2", "b2", "ln_s", "ln_b", "film")
-# the tensors K3's internal bf16 roundings (x, h, da2, da1) feed
+# the tensors the kernels' internal bf16 roundings (x, h, da2, da1) feed
 K3_ROUNDED = ("out", "x", "w1", "b1", "w2")
 # |conv1 pre-activation| under which kernel and plain may take different
-# ReLU branches at bf16: both add the same 385 exact bf16 products and the
-# bias in float32 in other orders, ~1e-6 apart at this scale
+# ReLU branches at bf16: both add the same 3E + 1 exact bf16 products and
+# the bias in float32 in other orders, ~1e-6 apart at E=128; the bound
+# grows with E
 RELU_TIE = 3e-5
 
 
 def relu_tie_rows(x, w1, b1, dot_dtype):
     """(B, T) bool: rows with a conv1 pre-activation (on x and W1 rounded
-    to the dot type, exact in float64) within RELU_TIE of zero."""
+    to the dot type, exact in float64) within RELU_TIE * E / 128 of
+    zero."""
     from daft_exprt_tpu_torch.ops.conv_ff_train import _conv3
 
     a1 = _conv3(x.to(dot_dtype).double(),
                 w1.to(dot_dtype).double().permute(2, 1, 0)) + b1.double()
-    return (a1.abs() < RELU_TIE).any(-1)
+    return (a1.abs() < RELU_TIE * x.shape[-1] / 128).any(-1)
 
 
-def check_k3(gen):
-    """K3 (training conv-FF) forward and backward against their plain
-    versions, f32 and bf16, rates 0 and 0.1; at bf16 the control with
-    rounding off must fail; weight gradients bit-identical over two
+def conv_ff_params(gen, rng, E_, C_):
+    """Ordinary weights (seeded init, biases and LN affine terms moved off
+    their init) and dyadic ones (conv1 and b1 on a grid whose sums are
+    exact in float32), on the card."""
+    block = FFTBlock(E_, 2, C_, 3)
+    init_parameters(block, gen)
+    ff = block.feed_forward
+    with torch.no_grad():  # non-trivial biases and LN affine terms
+        ordinary = [p.detach().cuda() + (0.1 * torch.randn(
+            p.shape, generator=gen).cuda() if p.dim() == 1 else 0.0)
+            for p in (ff.convs["0"].conv.weight, ff.convs["0"].conv.bias,
+                      ff.convs["2"].conv.weight, ff.convs["2"].conv.bias,
+                      ff.layer_norm.weight, ff.layer_norm.bias)]
+    dyadic = [_cuda((rng.integers(-64, 65, size=(C_, E_, 3)) / 1024).astype(
+        np.float32)), _cuda((rng.integers(-512, 513, size=C_) / 8192).astype(
+            np.float32))] + ordinary[2:]
+    return ordinary, dyadic
+
+
+def check_conv_ff(kernel, shapes, gen, seed):
+    """K3 or K4 (training conv-FF) forward and backward against their
+    plain versions, f32 and bf16, rates 0 and 0.1; at bf16 the control
+    with rounding off must fail; weight gradients bit-identical over two
     backward runs; the frame-rate bf16 shape timed.
 
     f32 feeds conv1 dyadic values (x in k/8, |x| <= 2; W1 in k/1024,
@@ -474,42 +552,43 @@ def check_k3(gen):
     other branch, and the backward's ReLU mask is discontinuous there).
     bf16 feeds ordinary values, so that the rounding of x and W1 is
     checked, and zeroes the cotangent on the three rows around each row
-    with a pre-activation within RELU_TIE of zero: da1 is then zero on
+    with a pre-activation near zero (relu_tie_rows): da1 is then zero on
     that row on both sides, whichever branch they take."""
     from daft_exprt_tpu_torch.ops.conv_ff_train import (
-        conv_ff_backward_cuda, conv_ff_forward_cuda, conv_ff_plain,
-        conv_ff_plain_backward, conv_ff_train, kernel_weights)
+        conv_ff_backward_cuda, conv_ff_blocked_plain,
+        conv_ff_blocked_plain_backward, conv_ff_forward_cuda,
+        conv_ff_train, conv_ff_train_blocked, kernel_weights, plan_conv_ff)
 
-    rng = np.random.default_rng(4)
-    block = FFTBlock(E, 2, C, 3)
-    init_parameters(block, gen)
-    ff = block.feed_forward
-    with torch.no_grad():  # non-trivial biases and LN affine terms
-        ordinary = [p.detach().cuda() + (0.1 * torch.randn(
-            p.shape, generator=gen).cuda() if p.dim() == 1 else 0.0)
-            for p in (ff.convs["0"].conv.weight, ff.convs["0"].conv.bias,
-                      ff.convs["2"].conv.weight, ff.convs["2"].conv.bias,
-                      ff.layer_norm.weight, ff.layer_norm.bias)]
-    dyadic = [_cuda((rng.integers(-64, 65, size=(C, E, 3)) / 1024).astype(
-        np.float32)), _cuda((rng.integers(-512, 513, size=C) / 8192).astype(
-            np.float32))] + ordinary[2:]
+    rng = np.random.default_rng(seed)
+    params = {}
     rows = []
-    for name, B, T in K3_SHAPES:
-        x_dyadic = _cuda((rng.integers(-16, 17, size=(B, T, E)) / 8).astype(
-            np.float32))
-        x_ordinary = _cuda(rng.standard_normal((B, T, E)).astype(np.float32))
-        g_all = _cuda(rng.standard_normal((B, T, E)).astype(np.float32))
+    for name, B, T, E_, C_, cb, lens in shapes:
+        if kernel == "K4":
+            cb = cb or plan_conv_ff(T, E_, C_, 3)
+        if (E_, C_) not in params:
+            params[E_, C_] = conv_ff_params(gen, rng, E_, C_)
+        ordinary, dyadic = params[E_, C_]
+        valid = torch.ones((B, T, 1), device="cuda")
+        if lens is not None:
+            valid = (torch.arange(T, device="cuda")[None, :] < _cuda(
+                np.asarray(lens))[:, None])[..., None].float()
+        x_dyadic = _cuda((rng.integers(-16, 17, size=(B, T, E_)) / 8).astype(
+            np.float32)) * valid
+        x_ordinary = _cuda(rng.standard_normal((B, T, E_)).astype(
+            np.float32)) * valid
+        g_all = _cuda(rng.standard_normal((B, T, E_)).astype(
+            np.float32)) * valid
         film = _cuda(np.concatenate(
-            [1 + 0.1 * rng.standard_normal((B, E)),
-             0.1 * rng.standard_normal((B, E))], 1).astype(np.float32))
+            [1 + 0.1 * rng.standard_normal((B, E_)),
+             0.1 * rng.standard_normal((B, E_))], 1).astype(np.float32))
         seeds = _cuda(rng.integers(-2 ** 31, 2 ** 31, size=B).astype(
             np.int32))
         for dot_dtype in (torch.float32, torch.bfloat16):
             bf16 = dot_dtype == torch.bfloat16
-            x, params = (x_ordinary, ordinary) if bf16 else (x_dyadic, dyadic)
+            x, prm = (x_ordinary, ordinary) if bf16 else (x_dyadic, dyadic)
             g, tied = g_all, 0.0
             if bf16:
-                tie = relu_tie_rows(x, params[0], params[1], dot_dtype)
+                tie = relu_tie_rows(x, prm[0], prm[1], dot_dtype)
                 near = tie.clone()
                 near[:, 1:] |= tie[:, :-1]
                 near[:, :-1] |= tie[:, 1:]
@@ -517,26 +596,38 @@ def check_k3(gen):
                 tied = tie.float().mean().item()
             for rate in RATES:
                 leaves = [t.clone().requires_grad_()
-                          for t in [x] + params + [film]]
+                          for t in [x] + prm + [film]]
                 w1, b1, w2, b2, ls, lb = leaves[1:7]
-                out = conv_ff_train(*leaves, seeds, rate, dot_dtype)
+                if cb is None:
+                    out = conv_ff_train(*leaves, seeds, rate, dot_dtype)
+                else:
+                    out = conv_ff_train_blocked(*leaves, seeds, rate, cb,
+                                                dot_dtype)
                 grads = torch.autograd.grad(out, leaves, g, retain_graph=True)
                 again = torch.autograd.grad(out, leaves, g)
                 torch.cuda.synchronize()
                 if not all(torch.equal(a, b) for a, b in zip(grads, again)):
-                    raise AssertionError(f"K3 {name}: two backward runs "
+                    raise AssertionError(f"{kernel} {name}: two backward runs "
                                          "differ")
-                plain_args = (x, *params, film, seeds)
-                ref = conv_ff_plain(*plain_args, rate, dot_dtype)
-                ref_grads = conv_ff_plain_backward(*plain_args, g, rate,
-                                                   dot_dtype)
-                tol_f, tol_g = K3_TOL[dot_dtype]
+                plain_args = (x, *prm, film, seeds)
+                c_plain = cb or C_
+
+                def plain():
+                    return conv_ff_blocked_plain(*plain_args, rate, c_plain,
+                                                 dot_dtype)
+
+                def plain_bwd():
+                    return conv_ff_blocked_plain_backward(
+                        *plain_args, g, rate, c_plain, dot_dtype)
+
+                ref, ref_grads = plain(), plain_bwd()
+                tol_f, tol_g = CONV_FF_TOL[kernel][dot_dtype]
                 err_f, ok_f = _err(out, ref, tol_f)
                 errs = {n: _err(a, b, tol_g) for n, a, b in
                         zip(K3_GRADS, grads, ref_grads)}
-                row = {"shape": name, "B": B, "T": T,
-                       "dtype": dtype_name(dot_dtype), "rate": rate,
-                       "fwd_err": err_f,
+                row = {"shape": name, "B": B, "T": T, "E": E_, "C": C_,
+                       "c_block": cb, "dtype": dtype_name(dot_dtype),
+                       "rate": rate, "fwd_err": err_f,
                        "bwd_err": max(e for e, _ in errs.values()),
                        "bwd_errs": {n: e for n, (e, _) in errs.items()},
                        "tol": [tol_f, tol_g]}
@@ -547,8 +638,10 @@ def check_k3(gen):
                 if bf16:
                     # the control: the same kernels on the same rounded
                     # weights, rounding off
-                    c_out = conv_ff_forward_cuda(*kargs, rate, torch.float32)
-                    c = conv_ff_backward_cuda(*kargs, g, rate, torch.float32)
+                    c_out = conv_ff_forward_cuda(*kargs, rate, torch.float32,
+                                                 cb)
+                    c = conv_ff_backward_cuda(*kargs, g, rate, torch.float32,
+                                              cb)
                     c_grads = (c[0], c[1].permute(2, 1, 0), c[2],
                                c[3].permute(2, 1, 0))
                     named = dict(zip(K3_GRADS, grads))
@@ -560,26 +653,25 @@ def check_k3(gen):
                     row["control_rel_l2"] = {
                         n: _rel_l2(a, ref_named.get(n, ref))
                         for n, a in zip(K3_ROUNDED, (c_out, *c_grads))}
-                print("K3", json.dumps(row), flush=True)
+                print(kernel, json.dumps(row), flush=True)
                 if not (ok_f and all(ok for _, ok in errs.values())):
-                    raise AssertionError(f"K3 disagrees with plain: {row}")
+                    raise AssertionError(f"{kernel} disagrees with plain: "
+                                         f"{row}")
                 if bf16:
-                    _bf16_verdict("K3", row["rel_l2"], row["control_rel_l2"])
-                if name == "frame_rate" and bf16:
+                    _bf16_verdict(kernel, row["rel_l2"],
+                                  row["control_rel_l2"])
+                if name in CONV_FF_TIMED and bf16:
                     row["fwd_ms"] = cuda_ms(lambda: conv_ff_forward_cuda(
-                        *kargs, rate, dot_dtype))
+                        *kargs, rate, dot_dtype, cb))
                     row["bwd_ms"] = cuda_ms(lambda: conv_ff_backward_cuda(
-                        *kargs, g, rate, dot_dtype))
-                    row["fwd_plain_ms"] = cuda_ms(lambda: conv_ff_plain(
-                        *plain_args, rate, dot_dtype), reps=5)
-                    row["bwd_plain_ms"] = cuda_ms(
-                        lambda: conv_ff_plain_backward(*plain_args, g, rate,
-                                                       dot_dtype), reps=5)
+                        *kargs, g, rate, dot_dtype, cb))
+                    row["fwd_plain_ms"] = cuda_ms(plain, reps=5)
+                    row["bwd_plain_ms"] = cuda_ms(plain_bwd, reps=5)
                     row["fwd_bound_ms"], row["fwd_bound_by"] = k3_bound(
-                        B, T, dot_dtype, False)
+                        B, T, dot_dtype, False, E=E_, C=C_)
                     row["bwd_bound_ms"], row["bwd_bound_by"] = k3_bound(
-                        B, T, dot_dtype, True)
-                    print("K3 timed", json.dumps(row), flush=True)
+                        B, T, dot_dtype, True, E=E_, C=C_)
+                    print(f"{kernel} timed", json.dumps(row), flush=True)
                 rows.append(row)
     return rows
 
@@ -1209,12 +1301,26 @@ def audio_against_cpu():
 K2_KERNELS =("attn_fwd_kernel", "attn_bwd_dq_kernel", "attn_bwd_dkdv_kernel")
 K3_KERNELS = ("cff_rows_kernel", "cff_hidden_kernel", "wgrad_kernel",
               "sum_rows_kernel")
+K4_KERNELS = ("cffb_rows_kernel", "cffb_hidden_kernel", "wgrad_kernel",
+              "sum_rows_kernel")
 TRAIN_COUNTERS = {
     "attention_train_forward": (attention_core, "fwd_launches"),
     "attention_train_backward": (attention_core, "bwd_launches"),
     "conv_ff_train_forward": (conv_ff_train, "fwd_launches"),
     "conv_ff_train_backward": (conv_ff_train, "bwd_launches"),
+    "conv_ff_train_blocked_forward": (conv_ff_train_blocked, "fwd_launches"),
+    "conv_ff_train_blocked_backward": (conv_ff_train_blocked,
+                                       "bwd_launches"),
 }
+
+
+def expected_launches(conv_ff, n):
+    """The training counters when K2 and the conv-FF kernel ``conv_ff``
+    launched n times in each direction, and the other conv-FF kernel
+    never."""
+    ran = {"attention_train_forward", "attention_train_backward",
+           f"{conv_ff}_forward", f"{conv_ff}_backward"}
+    return {name: n if name in ran else 0 for name in TRAIN_COUNTERS}
 
 
 def train_batch(hp, rng, L, T, device="cuda"):
@@ -1242,10 +1348,13 @@ def train_batch(hp, rng, L, T, device="cuda"):
         for k, v in batch.items()}
 
 
-def train(hp, warmup=2, steps=5):
-    """Phase 5: optimizer steps at flagship width through make_train_step,
-    with the training kernels' launch counters read around the timed
-    steps."""
+def train(hp, conv_ff, warmup=2, steps=5):
+    """Optimizer steps at full width through make_train_step, with the
+    training kernels' launch counters read around the timed steps: K2 and
+    the conv-FF kernel ``conv_ff`` (``"conv_ff_train"``, K3, or
+    ``"conv_ff_train_blocked"``, K4) once per FFT block and micro-batch in
+    each direction, the other conv-FF kernel and K1 never."""
+    torch.cuda.reset_peak_memory_stats()
     model = DaftExprt(hp, seed=0)
     step = make_train_step(model, hp)
     rng = np.random.default_rng(5)
@@ -1268,10 +1377,11 @@ def train(hp, warmup=2, steps=5):
     n_blocks = sum(hp.__dict__[m]["nb_blocks"] for m in
                    ("prosody_encoder", "phoneme_encoder", "frame_decoder"))
     expect = n_blocks * hp.accumulation_steps * steps
-    print(f"training: launches {json.dumps(launches)} (expected {expect} "
-          f"each), K1 {fused_fft_block.launches} (expected 0)", flush=True)
-    if any(n != expect for n in launches.values()) \
-            or fused_fft_block.launches != 0:
+    want = expected_launches(conv_ff, expect)
+    print(f"training: launches {json.dumps(launches)} (expected "
+          f"{json.dumps(want)}), K1 {fused_fft_block.launches} (expected 0)",
+          flush=True)
+    if launches != want or fused_fft_block.launches != 0:
         raise AssertionError(f"training launches {launches}, K1 "
                              f"{fused_fft_block.launches}")
     rows = [{k: float(v) for k, v in m.items()} for m in metrics]
@@ -1295,32 +1405,58 @@ def train(hp, warmup=2, steps=5):
     it = warmup + steps + 1
     report["profile"] = profile_kernels(
         lambda: step(batch, gen, it),
-        {"k2_ms": K2_KERNELS, "k3_ms": K3_KERNELS})
+        {"k2_ms": K2_KERNELS,
+         "k3_ms" if conv_ff == "conv_ff_train" else "k4_ms":
+         K3_KERNELS if conv_ff == "conv_ff_train" else K4_KERNELS})
     print("training profile", json.dumps(report["profile"]), flush=True)
     return report, launches
 
 
-def train_against_cpu():
-    """One float32 step at flagship width (B=2, L=16, T=64, accumulation
-    1, dropout 0) on the card and on the CPU from the same seed."""
+def small_wide_hparams(**overrides):
+    """The wide ablation cut to size for the card-vs-CPU step: E=256, 2
+    heads of D=128, conv channels 256, one FFT block per module (K2's
+    D=128 instance and K4 at two C blocks)."""
+    base = wide_head_hparams()
+    small = dict(hidden_embed_dim=256, attn_nb_heads=2, conv_channels=256,
+                 nb_blocks=1)
+    modules = {m: {**getattr(base, m), **small} for m in
+               ("prosody_encoder", "phoneme_encoder", "frame_decoder")}
+    return wide_head_hparams(**{**modules, **overrides})
+
+
+def train_against_cpu(make_hp, conv_ff):
+    """One float32 step (B=2, L=16, T=64, accumulation 1, dropout 0) of
+    the configuration ``make_hp`` gives, on the card and on the CPU from
+    the same seed; on the card K2 and the conv-FF kernel ``conv_ff`` run
+    once per FFT block in each direction."""
     def no_drop(cfg):
         return {**cfg, **{k: 0.0 for k in ("attn_dropout", "conv_dropout")
                           if k in cfg}}
 
-    base = flagship_hparams()
-    hp = flagship_hparams(
+    base = make_hp()
+    hp = make_hp(
         compute_dtype="float32", batch_size=2, accumulation_steps=1,
         prosody_encoder=no_drop(base.prosody_encoder),
         phoneme_encoder=no_drop(base.phoneme_encoder),
         local_prosody_predictor=no_drop(base.local_prosody_predictor),
         frame_decoder=no_drop(base.frame_decoder))
     out = {}
+    for fn, attr in TRAIN_COUNTERS.values():
+        setattr(fn, attr, 0)
     for device in ("cuda", "cpu"):
         model = DaftExprt(hp, device=device, seed=0)
         batch = train_batch(hp, np.random.default_rng(6), 16, 64, device)
         metrics = make_train_step(model, hp)(batch, None, 1)
         out[device] = ({k: float(v) for k, v in metrics.items()},
                        {n: p.grad.cpu() for n, p in model.named_parameters()})
+    launches = {name: getattr(fn, attr)
+                for name, (fn, attr) in TRAIN_COUNTERS.items()}
+    n_blocks = sum(hp.__dict__[m]["nb_blocks"] for m in
+                   ("prosody_encoder", "phoneme_encoder", "frame_decoder"))
+    want = expected_launches(conv_ff, n_blocks)
+    if launches != want:
+        raise AssertionError(f"card step launches {launches}, expected "
+                             f"{want}")
     (gm, gg), (cm, cg) = out["cuda"], out["cpu"]
     loss_err = abs(gm["loss"] - cm["loss"]) / abs(cm["loss"])
     norm_err = abs(gm["grad_norm"] - cm["grad_norm"]) / cm["grad_norm"]
@@ -1331,9 +1467,11 @@ def train_against_cpu():
               "grad_norm": [gm["grad_norm"], cm["grad_norm"]],
               "grad_norm_rel_err": norm_err,
               "worst_param_grad_rel_l2_err": grad_errs[worst],
-              "worst_param": worst, "tol": TRAIN_CPU_TOL}
+              "worst_param": worst, "tol": TRAIN_CPU_TOL,
+              "launches": launches}
     grad_err = grad_errs[worst]
-    print("f32 training card vs CPU", json.dumps(report), flush=True)
+    print(f"f32 training card vs CPU ({conv_ff})", json.dumps(report),
+          flush=True)
     if not (loss_err <= TRAIN_CPU_TOL["loss"]
             and norm_err <= TRAIN_CPU_TOL["grad_norm"]
             and grad_err <= TRAIN_CPU_TOL["grad"]):
@@ -1351,16 +1489,34 @@ def train_against_cpu():
 TRAIN_CPU_TOL = {"loss": 1e-5, "grad_norm": 1e-4, "grad": 1e-2}
 
 
+def _timing(rows, direction, library):
+    """Times of one timed shape's rows at rate 0 (the rate at which the
+    library call computes the same function), and the kernel at 0.1."""
+    head = next(r for r in rows if r["rate"] == 0.0)
+    drop = next(r for r in rows if r["rate"] > 0.0)
+    return {
+        "ms": head[f"{direction}_ms"],
+        "plain_ms": head[f"{direction}_plain_ms"],
+        "bound_ms": head[f"{direction}_bound_ms"],
+        "bound_by": head[f"{direction}_bound_by"],
+        "library_ms": head.get(f"{direction}_library_ms") if library
+        else None,
+        "ms_at_rate_0.1": drop[f"{direction}_ms"],
+        "at": f"{head['shape']} B={head['B']} T={head['T']} "
+              f"E={head.get('E', E)} bf16",
+    }
+
+
 def kernel_entry(name, kernel, source, replaces, launches, rows, direction,
-                 library):
+                 library, **extra):
     """One ``kernels`` entry of a training kernel from its check rows:
     errors over every checked shape (the bf16 relative L2 errors of this
     direction's tensors beside the control's smallest), times at the
-    timed shape at rate 0 (the rate at which the library call computes
-    the same function)."""
+    first timed shape, and at the others under ``also_timed``."""
     timed = [r for r in rows if f"{direction}_ms" in r]
-    head = next(r for r in timed if r["rate"] == 0.0)
-    drop = next(r for r in timed if r["rate"] > 0.0)
+    shapes = list(dict.fromkeys(r["shape"] for r in timed))
+    timings = [_timing([r for r in timed if r["shape"] == sh], direction,
+                       library) for sh in shapes]
     bf16 = [r for r in rows if "rel_l2" in r]
 
     def ours(n):
@@ -1378,14 +1534,7 @@ def kernel_entry(name, kernel, source, replaces, launches, rows, direction,
             e for r in bf16 for n, e in r["control_rel_l2"].items()
             if ours(n)),
         "bf16_rel_l2_limit": BF16_REL_TOL[kernel, direction],
-        "ms": head[f"{direction}_ms"],
-        "plain_ms": head[f"{direction}_plain_ms"],
-        "bound_ms": head[f"{direction}_bound_ms"],
-        "bound_by": head[f"{direction}_bound_by"],
-        "library_ms": head.get(f"{direction}_library_ms") if library
-        else None,
-        "ms_at_rate_0.1": drop[f"{direction}_ms"],
-        "at": f"{head['shape']} B={head['B']} T={head['T']} bf16",
+        **timings[0], "also_timed": timings[1:], **extra,
     }
 
 
@@ -1447,11 +1596,6 @@ def main() -> int:
           f"cuda {torch.version.cuda}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    # K4 is not ported: its function is K3's, at the wide ablation's shape
-    # (tools/train_profile.py: E=512, conv channels 512, T=768, B=16)
-    k4 = {d: k3_bound(16, 768, torch.bfloat16, d == "bwd", E=512, C=512)
-          for d in ("fwd", "bwd")}
-    print("K4 bound on paper (ms, by)", json.dumps(k4), flush=True)
 
     gen = torch.Generator().manual_seed(0)
     k1 = check_k1(gen)
@@ -1472,10 +1616,14 @@ def main() -> int:
     audio_cpu = audio_against_cpu()
     del vocoder, audio_engines, audio_requests
     k2 = check_k2()
-    k3 = check_k3(gen)
+    k3 = check_conv_ff("K3", K3_SHAPES, gen, 4)
     training, train_launches = train(flagship_hparams(
-        batch_size=16, accumulation_steps=3))
-    train_cpu = train_against_cpu()
+        batch_size=16, accumulation_steps=3), "conv_ff_train")
+    train_cpu = train_against_cpu(flagship_hparams, "conv_ff_train")
+    k4 = check_conv_ff("K4", K4_SHAPES, gen, 9)
+    wide, wide_launches = train(wide_head_hparams(
+        batch_size=16, accumulation_steps=3), "conv_ff_train_blocked")
+    wide_cpu = train_against_cpu(small_wide_hparams, "conv_ff_train_blocked")
 
     head = next(r for r in k1 if r["shape"] == "frame_decoder"
                 and r["dtype"] == "bfloat16")
@@ -1505,18 +1653,29 @@ def main() -> int:
               "daft_exprt_tpu/ops/attention_train.py")
     k3_src = ("daft_exprt_tpu_torch/csrc/conv_ff_train.cu",
               "daft_exprt_tpu/ops/conv_ff_train.py")
+    k4_src = ("daft_exprt_tpu_torch/csrc/conv_ff_blocked.cu",
+              "daft_exprt_tpu/ops/conv_ff_train.py")
     entries = [entry]
+    # launches: the flagship step's (K4: the wide step's); launches_wide:
+    # the wide step's
     for name, kernel, (src, ref), line, direction, rows, library in (
             ("attention_train_forward", "K2", k2_src, 93, "fwd", k2, True),
             ("attention_train_backward", "K2", k2_src, 135, "bwd", k2, True),
             ("conv_ff_train_forward", "K3", k3_src, 111, "fwd", k3, False),
             ("conv_ff_train_backward", "K3", k3_src, 126, "bwd", k3,
+             False),
+            ("conv_ff_train_blocked_forward", "K4", k4_src, 373, "fwd", k4,
+             False),
+            ("conv_ff_train_blocked_backward", "K4", k4_src, 416, "bwd", k4,
              False)):
+        main_run = wide_launches if kernel == "K4" else train_launches
         entries.append(kernel_entry(name, kernel, src, f"{ref}:{line}",
-                                    train_launches[name], rows, direction,
-                                    library))
+                                    main_run[name], rows, direction, library,
+                                    launches_wide=wide_launches[name]))
     entries[1]["training"] = training
     entries[1]["training_card_vs_cpu_f32"] = train_cpu
+    entries[5]["training"] = wide
+    entries[5]["training_card_vs_cpu_f32"] = wide_cpu
     entries.append(k5_entry(k5, k5_launches, audio, two_step_err,
                             audio_profile, stream, audio_cpu))
     print(json.dumps({"kernels": entries}))

@@ -2,7 +2,8 @@
 //
 // Replaces the Pallas TPU kernels daft_exprt_tpu/ops/attention_train.py
 // _fwd_kernel and _bwd_kernel (K2). For each batch row b (valid key
-// count len_b), head h and query row i, with D = 128 / H:
+// count len_b), head h and query row i, with D = E / H (16, 64 or 128;
+// E is a runtime width):
 //
 //   p_ij   = exp(s_ij - m_i) / max(l_i, 1e-30),  s_ij = q_i . k_j / sqrt(D)
 //            over keys j < len_b (masked keys have exactly zero weight)
@@ -41,7 +42,8 @@
 // the row max and sum (B, H, T) f32 for the backward; the backward is two
 // launches that recompute P from q, k and those stats: one per query
 // tile (delta, then dq), one per key tile (dk and dv, streaming query
-// tiles). The products run on CUDA-core FMAs; tensor cores are later work.
+// tiles). G = D / 16 lanes share a row, 128 / G rows per 128-thread block.
+// The products run on CUDA-core FMAs; tensor cores are later work.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -52,9 +54,11 @@
 
 namespace {
 
-constexpr int E = 128;   // packed model width
-constexpr int KT = 64;   // key rows per shared-memory tile (forward, dq)
-constexpr int QTB = 64;  // query rows per shared-memory tile (dk/dv)
+// Key rows (forward, dq) and query rows (dk/dv) per shared-memory tile:
+// two f32 tiles of 64 x D take 64 KB at D = 128, over the 48 KB of static
+// shared memory, so that width takes 32 rows.
+template <int G>
+__host__ __device__ constexpr int rows_per_tile() { return G == 8 ? 32 : 64; }
 
 __device__ __forceinline__ float rnd(float v, bool bf16) {
   return bf16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
@@ -131,7 +135,8 @@ __device__ __forceinline__ void store16(Out* dst, const float* src) {
 // or past T read as zero. Optionally rounded (the cotangent).
 template <int D, typename In>
 __device__ __forceinline__ void load_rows(float (*dst)[D], const In* src, int r0,
-                                          int n, int T, int h, bool round, bool bf16) {
+                                          int n, int T, int E, int h, bool round,
+                                          bool bf16) {
   constexpr int V4 = D / 4;
   for (int i = threadIdx.x; i < n * V4; i += blockDim.x) {
     const int j = i / V4, c = i % V4;
@@ -160,8 +165,9 @@ attn_fwd_kernel(const In* __restrict__ q, const In* __restrict__ k,
                 const In* __restrict__ v, const int* __restrict__ lengths,
                 const int* __restrict__ seeds, float* __restrict__ out,
                 float* __restrict__ row_max, float* __restrict__ row_sum, int T,
-                int tq, float scale, Dropout drop, bool bf16) {
-  constexpr int D = 16 * G, QT = 128 / G, H = E / D;
+                int E, int tq, float scale, Dropout drop, bool bf16) {
+  constexpr int D = 16 * G, QT = 128 / G, KT = rows_per_tile<G>();
+  const int H = E / D;
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * QT;
   const int tid = threadIdx.x, g = tid % G, row = q0 + tid / G;
   bool uniform;
@@ -185,7 +191,7 @@ attn_fwd_kernel(const In* __restrict__ q, const In* __restrict__ k,
   for (int k0 = 0; k0 < nkeys; k0 += KT) {
     const int nk = min(KT, nkeys - k0);
     __syncthreads();
-    load_rows<D, In>(Ks, k + base, k0, nk, T, h, false, bf16);
+    load_rows<D, In>(Ks, k + base, k0, nk, T, E, h, false, bf16);
     __syncthreads();
     for (int j = 0; j < nk; ++j) {
       const float s = uniform ? 0.f : dot16<G>(qr, &Ks[j][g * 16]) * scale;
@@ -205,8 +211,8 @@ attn_fwd_kernel(const In* __restrict__ q, const In* __restrict__ k,
   for (int k0 = 0; k0 < nkeys; k0 += KT) {
     const int nk = min(KT, nkeys - k0);
     __syncthreads();
-    load_rows<D, In>(Ks, k + base, k0, nk, T, h, false, bf16);
-    load_rows<D, In>(Vs, v + base, k0, nk, T, h, false, bf16);
+    load_rows<D, In>(Ks, k + base, k0, nk, T, E, h, false, bf16);
+    load_rows<D, In>(Vs, v + base, k0, nk, T, E, h, false, bf16);
     __syncthreads();
     for (int j = 0; j < nk; ++j) {
       const float s = uniform ? 0.f : dot16<G>(qr, &Ks[j][g * 16]) * scale;
@@ -243,9 +249,10 @@ attn_bwd_dq_kernel(const In* __restrict__ q, const In* __restrict__ k,
                    const In* __restrict__ v, const float* __restrict__ go,
                    const int* __restrict__ lengths, const int* __restrict__ seeds,
                    const float* __restrict__ row_max, const float* __restrict__ row_sum,
-                   float* __restrict__ delta, In* __restrict__ dq, int T, int tq,
+                   float* __restrict__ delta, In* __restrict__ dq, int T, int E, int tq,
                    float scale, Dropout drop, bool bf16) {
-  constexpr int D = 16 * G, QT = 128 / G, H = E / D;
+  constexpr int D = 16 * G, QT = 128 / G, KT = rows_per_tile<G>();
+  const int H = E / D;
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * QT;
   const int tid = threadIdx.x, g = tid % G, row = q0 + tid / G;
   bool uniform;
@@ -286,8 +293,8 @@ attn_bwd_dq_kernel(const In* __restrict__ q, const In* __restrict__ k,
   for (int k0 = 0; k0 < nkeys; k0 += KT) {
     const int nk = min(KT, nkeys - k0);
     __syncthreads();
-    load_rows<D, In>(Ks, k + base, k0, nk, T, h, false, bf16);
-    load_rows<D, In>(Vs, v + base, k0, nk, T, h, false, bf16);
+    load_rows<D, In>(Ks, k + base, k0, nk, T, E, h, false, bf16);
+    load_rows<D, In>(Vs, v + base, k0, nk, T, E, h, false, bf16);
     __syncthreads();
     for (int j = 0; j < nk; ++j) {
       float p;
@@ -302,8 +309,8 @@ attn_bwd_dq_kernel(const In* __restrict__ q, const In* __restrict__ k,
   for (int k0 = 0; k0 < nkeys; k0 += KT) {
     const int nk = min(KT, nkeys - k0);
     __syncthreads();
-    load_rows<D, In>(Ks, k + base, k0, nk, T, h, false, bf16);
-    load_rows<D, In>(Vs, v + base, k0, nk, T, h, false, bf16);
+    load_rows<D, In>(Ks, k + base, k0, nk, T, E, h, false, bf16);
+    load_rows<D, In>(Vs, v + base, k0, nk, T, E, h, false, bf16);
     __syncthreads();
     for (int j = 0; j < nk; ++j) {
       float p;
@@ -337,9 +344,10 @@ attn_bwd_dkdv_kernel(const In* __restrict__ q, const In* __restrict__ k,
                      const int* __restrict__ lengths, const int* __restrict__ seeds,
                      const float* __restrict__ row_max, const float* __restrict__ row_sum,
                      const float* __restrict__ delta, In* __restrict__ dk,
-                     In* __restrict__ dv, int T, int tq, float scale, Dropout drop,
+                     In* __restrict__ dv, int T, int E, int tq, float scale, Dropout drop,
                      bool bf16) {
-  constexpr int D = 16 * G, KR = 128 / G, H = E / D;
+  constexpr int D = 16 * G, KR = 128 / G, QTB = rows_per_tile<G>();
+  const int H = E / D;
   const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * KR;
   const int tid = threadIdx.x, g = tid % G, col = k0 + tid / G;
   bool uniform;
@@ -379,8 +387,8 @@ attn_bwd_dkdv_kernel(const In* __restrict__ q, const In* __restrict__ k,
   for (int i0 = 0; i0 < T; i0 += QTB) {
     const int nq = min(QTB, T - i0);
     __syncthreads();
-    load_rows<D, In>(Qs, q + base, i0, nq, T, h, false, bf16);
-    load_rows<D, float>(Gs, go + base, i0, nq, T, h, true, bf16);
+    load_rows<D, In>(Qs, q + base, i0, nq, T, E, h, false, bf16);
+    load_rows<D, float>(Gs, go + base, i0, nq, T, E, h, true, bf16);
     for (int i = tid; i < nq; i += blockDim.x) {
       Ms[i] = row_max[stat + i0 + i];
       Ls[i] = fmaxf(row_sum[stat + i0 + i], 1e-30f);
@@ -419,18 +427,22 @@ attn_bwd_dkdv_kernel(const In* __restrict__ q, const In* __restrict__ k,
 template <typename In>
 int launch_forward(const void* q, const void* k, const void* v, const int* lengths,
                    const int* seeds, float* out, float* row_max, float* row_sum, int B,
-                   int T, int H, int tq, float scale, Dropout drop, bool bf16,
+                   int T, int E, int H, int tq, float scale, Dropout drop, bool bf16,
                    cudaStream_t stream) {
   const In *qi = static_cast<const In*>(q), *ki = static_cast<const In*>(k),
            *vi = static_cast<const In*>(v);
   switch (E / H) {
     case 16:
       attn_fwd_kernel<1, In><<<dim3((T + 127) / 128, H, B), 128, 0, stream>>>(
-          qi, ki, vi, lengths, seeds, out, row_max, row_sum, T, tq, scale, drop, bf16);
+          qi, ki, vi, lengths, seeds, out, row_max, row_sum, T, E, tq, scale, drop, bf16);
       break;
     case 64:
       attn_fwd_kernel<4, In><<<dim3((T + 31) / 32, H, B), 128, 0, stream>>>(
-          qi, ki, vi, lengths, seeds, out, row_max, row_sum, T, tq, scale, drop, bf16);
+          qi, ki, vi, lengths, seeds, out, row_max, row_sum, T, E, tq, scale, drop, bf16);
+      break;
+    case 128:
+      attn_fwd_kernel<8, In><<<dim3((T + 15) / 16, H, B), 128, 0, stream>>>(
+          qi, ki, vi, lengths, seeds, out, row_max, row_sum, T, E, tq, scale, drop, bf16);
       break;
     default:
       return cudaErrorInvalidValue;
@@ -442,15 +454,16 @@ template <int G, typename In>
 int launch_backward_g(const In* q, const In* k, const In* v, const float* g,
                       const int* lengths, const int* seeds, const float* row_max,
                       const float* row_sum, float* delta, In* dq, In* dk, In* dv, int B,
-                      int T, int H, int tq, float scale, Dropout drop, bool bf16,
+                      int T, int E, int H, int tq, float scale, Dropout drop, bool bf16,
                       cudaStream_t stream) {
   constexpr int R = 128 / G;  // query rows (dq) or key rows (dk, dv) per block
   attn_bwd_dq_kernel<G, In><<<dim3((T + R - 1) / R, H, B), 128, 0, stream>>>(
-      q, k, v, g, lengths, seeds, row_max, row_sum, delta, dq, T, tq, scale, drop, bf16);
+      q, k, v, g, lengths, seeds, row_max, row_sum, delta, dq, T, E, tq, scale, drop, bf16);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   attn_bwd_dkdv_kernel<G, In><<<dim3((T + R - 1) / R, H, B), 128, 0, stream>>>(
-      q, k, v, g, lengths, seeds, row_max, row_sum, delta, dk, dv, T, tq, scale, drop, bf16);
+      q, k, v, g, lengths, seeds, row_max, row_sum, delta, dk, dv, T, E, tq, scale, drop,
+      bf16);
   return cudaGetLastError();
 }
 
@@ -458,7 +471,7 @@ template <typename In>
 int launch_backward(const void* q, const void* k, const void* v, const float* g,
                     const int* lengths, const int* seeds, const float* row_max,
                     const float* row_sum, float* delta, void* dq, void* dk, void* dv, int B,
-                    int T, int H, int tq, float scale, Dropout drop, bool bf16,
+                    int T, int E, int H, int tq, float scale, Dropout drop, bool bf16,
                     cudaStream_t stream) {
   const In *qi = static_cast<const In*>(q), *ki = static_cast<const In*>(k),
            *vi = static_cast<const In*>(v);
@@ -466,11 +479,15 @@ int launch_backward(const void* q, const void* k, const void* v, const float* g,
   switch (E / H) {
     case 16:
       return launch_backward_g<1, In>(qi, ki, vi, g, lengths, seeds, row_max, row_sum,
-                                      delta, dqi, dki, dvi, B, T, H, tq, scale, drop,
+                                      delta, dqi, dki, dvi, B, T, E, H, tq, scale, drop,
                                       bf16, stream);
     case 64:
       return launch_backward_g<4, In>(qi, ki, vi, g, lengths, seeds, row_max, row_sum,
-                                      delta, dqi, dki, dvi, B, T, H, tq, scale, drop,
+                                      delta, dqi, dki, dvi, B, T, E, H, tq, scale, drop,
+                                      bf16, stream);
+    case 128:
+      return launch_backward_g<8, In>(qi, ki, vi, g, lengths, seeds, row_max, row_sum,
+                                      delta, dqi, dki, dvi, B, T, E, H, tq, scale, drop,
                                       bf16, stream);
     default:
       return cudaErrorInvalidValue;
@@ -479,33 +496,34 @@ int launch_backward(const void* q, const void* k, const void* v, const float* g,
 
 }  // namespace
 
-// q, k, v: (B, T, 128), float32 or (io_bf16) bfloat16; out: (B, T, 128)
-// f32; lengths, seeds: (B,) int32; row_max, row_sum: (B, H, T) f32
-// outputs. The wrapper checks the shapes and that 128 / H is 16 or 64 and
-// tq divides T. Returns the first CUDA error.
+// q, k, v: (B, T, E), float32 or (io_bf16) bfloat16; out: (B, T, E) f32;
+// lengths, seeds: (B,) int32; row_max, row_sum: (B, H, T) f32 outputs.
+// The wrapper checks the shapes and that E / H is 16, 64 or 128 and tq
+// divides T. Returns the first CUDA error.
 extern "C" int attention_train_forward(const void* q, const void* k, const void* v,
                                        const int* lengths, const int* seeds, float* out,
                                        float* row_max, float* row_sum, int B, int T,
-                                       int H, int tq, float scale, int use_dropout,
+                                       int E, int H, int tq, float scale, int use_dropout,
                                        unsigned int threshold, float inv_keep,
                                        int round_bf16, int io_bf16, void* stream_handle) {
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
   const Dropout drop{use_dropout != 0, threshold, inv_keep};
   const bool bf16 = round_bf16 != 0;
   return io_bf16 ? launch_forward<__nv_bfloat16>(q, k, v, lengths, seeds, out, row_max,
-                                                 row_sum, B, T, H, tq, scale, drop, bf16,
+                                                 row_sum, B, T, E, H, tq, scale, drop, bf16,
                                                  stream)
                  : launch_forward<float>(q, k, v, lengths, seeds, out, row_max, row_sum, B,
-                                         T, H, tq, scale, drop, bf16, stream);
+                                         T, E, H, tq, scale, drop, bf16, stream);
 }
 
-// g: (B, T, 128) f32 cotangent of out; delta: (B, H, T) f32 scratch;
+// g: (B, T, E) f32 cotangent of out; delta: (B, H, T) f32 scratch;
 // dq, dk, dv: (B, T, 128) outputs in q's element type.
 extern "C" int attention_train_backward(const void* q, const void* k, const void* v,
                                         const float* g, const int* lengths,
                                         const int* seeds, const float* row_max,
                                         const float* row_sum, float* delta, void* dq,
-                                        void* dk, void* dv, int B, int T, int H, int tq,
+                                        void* dk, void* dv, int B, int T, int E, int H,
+                                        int tq,
                                         float scale, int use_dropout,
                                         unsigned int threshold, float inv_keep,
                                         int round_bf16, int io_bf16, void* stream_handle) {
@@ -514,8 +532,8 @@ extern "C" int attention_train_backward(const void* q, const void* k, const void
   const bool bf16 = round_bf16 != 0;
   return io_bf16
              ? launch_backward<__nv_bfloat16>(q, k, v, g, lengths, seeds, row_max, row_sum,
-                                              delta, dq, dk, dv, B, T, H, tq, scale, drop,
-                                              bf16, stream)
+                                              delta, dq, dk, dv, B, T, E, H, tq, scale,
+                                              drop, bf16, stream)
              : launch_backward<float>(q, k, v, g, lengths, seeds, row_max, row_sum, delta,
-                                      dq, dk, dv, B, T, H, tq, scale, drop, bf16, stream);
+                                      dq, dk, dv, B, T, E, H, tq, scale, drop, bf16, stream);
 }

@@ -41,12 +41,13 @@
 //      memory, and dx = dr + conv1^T(rnd(da1)) (conv_c_to_e);
 //   3./4. weight-gradient products dW1 and dW2, each split over row
 //      chunks into partials (fixed split count), then reduced in order;
-//   5. one reduction of the small per-tile partials.
-// So the (B, T, C) tensors h and rnd(da1) do pass through device memory
-// in the backward (2 x 50 MB each way at the flagship shape, f32); the
-// forward keeps the hidden in shared memory. The products run on
-// CUDA-core FMAs; tensor cores and a C-blocked variant (K4) are later
-// work.
+//   5. one reduction of the small per-tile partials
+// (3.-5. in conv_ff_wgrad.cuh, shared with K4). So the (B, T, C) tensors
+// h and rnd(da1) do pass through device memory in the backward (2 x 50 MB
+// each way at the flagship shape, f32); the forward keeps the hidden in
+// shared memory. The products run on CUDA-core FMAs; tensor cores are
+// later work. Widths this tile does not take run the C-blocked K4
+// (conv_ff_blocked.cu).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -54,6 +55,7 @@
 #include <stdint.h>
 
 #include "conv_ff_tile.cuh"
+#include "conv_ff_wgrad.cuh"
 #include "dropout_hash.cuh"
 
 namespace {
@@ -65,24 +67,7 @@ using conv_ff::rnd;
 using conv_ff::warp_sum;
 
 constexpr float LN_EPS = 1e-5f;
-constexpr int WG_TILE = 64;  // weight-gradient output tile (64 x 64)
-constexpr int WG_ROWS = 32;  // rows per shared-memory chunk
-constexpr int SPLIT_ROWS = 512;
-constexpr int MAX_SPLITS = 32;
-
-struct Dropout {
-  bool on;
-  uint32_t threshold;  // keep iff bits >= threshold
-  float keep;          // 1 - rate: kept values are divided by it
-};
-
 int n_tiles(int T) { return (T + TT - 1) / TT; }
-
-int n_splits(int B, int T) {
-  const int rows = B * T;
-  int s = (rows + SPLIT_ROWS - 1) / SPLIT_ROWS;
-  return s < 1 ? 1 : (s > MAX_SPLITS ? MAX_SPLITS : s);
-}
 
 // Load rows lo-2 .. lo+TT+1 of a (T, E) matrix into in[(TT+4) x E],
 // rounded; rows outside [0, T) are zero.
@@ -311,86 +296,6 @@ cff_hidden_kernel(const float* __restrict__ da2c, const float* __restrict__ h,
   }
 }
 
-// -------------------------------------------------------------------
-// Weight gradients, split over row chunks:
-//   part[s][d][i][j] = sum_{rows (b, t) of chunk s} A[b, t+d-1, i] G[b, t, j]
-// A (B, T, M) (rounded on load if round_a; rows outside [0, T) zero),
-// G (B, T, N). Grid (N/64, M/64, 3 * splits), 256 threads, 4x4 per thread.
-// -------------------------------------------------------------------
-__global__ void __launch_bounds__(256)
-wgrad_kernel(const float* __restrict__ A, const float* __restrict__ G,
-             float* __restrict__ part, int B, int T, int M, int N, int splits,
-             bool round_a, bool bf16) {
-  const int j0 = blockIdx.x * WG_TILE, i0 = blockIdx.y * WG_TILE;
-  const int d = blockIdx.z % 3, s = blockIdx.z / 3;
-  const int rows = B * T;
-  const int chunk = (rows + splits - 1) / splits;
-  const int r_begin = s * chunk, r_end = min(rows, r_begin + chunk);
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-
-  __shared__ __align__(16) float As[WG_ROWS][WG_TILE];
-  __shared__ __align__(16) float Gs[WG_ROWS][WG_TILE];
-  float acc[4][4] = {};
-  for (int r0 = r_begin; r0 < r_end; r0 += WG_ROWS) {
-    for (int i = tid; i < WG_ROWS * WG_TILE / 4; i += 256) {
-      const int rr = i / (WG_TILE / 4), c4 = i % (WG_TILE / 4);
-      const int row = r0 + rr;
-      float4 av = make_float4(0.f, 0.f, 0.f, 0.f), gv = av;
-      if (row < r_end) {
-        const int b = row / T, t = row % T, ts = t + d - 1;
-        if (ts >= 0 && ts < T) {
-          av = *reinterpret_cast<const float4*>(A + ((size_t)b * T + ts) * M + i0 + 4 * c4);
-          if (round_a) {
-            av.x = rnd(av.x, bf16); av.y = rnd(av.y, bf16);
-            av.z = rnd(av.z, bf16); av.w = rnd(av.w, bf16);
-          }
-        }
-        gv = *reinterpret_cast<const float4*>(G + (size_t)row * N + j0 + 4 * c4);
-      }
-      reinterpret_cast<float4*>(As[rr])[c4] = av;
-      reinterpret_cast<float4*>(Gs[rr])[c4] = gv;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int k = 0; k < WG_ROWS; ++k) {
-      float a[4], gg[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) a[u] = As[k][ty + 16 * u];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) gg[u] = Gs[k][tx + 16 * u];
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-#pragma unroll
-        for (int w = 0; w < 4; ++w) acc[u][w] = fmaf(a[u], gg[w], acc[u][w]);
-    }
-    __syncthreads();
-  }
-  float* dst = part + ((size_t)s * 3 + d) * M * N;
-#pragma unroll
-  for (int u = 0; u < 4; ++u)
-#pragma unroll
-    for (int w = 0; w < 4; ++w)
-      dst[(size_t)(i0 + ty + 16 * u) * N + j0 + tx + 16 * w] = acc[u][w];
-}
-
-// out[g][n] = sum_{r < R} P[g][r][n], in order of r.
-__global__ void sum_rows_kernel(const float* __restrict__ P, float* __restrict__ out,
-                                int G, int R, int N) {
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (size_t)G * N) return;
-  const size_t gi = idx / N, n = idx % N;
-  const float* p = P + gi * R * N + n;
-  float s = 0.f;
-  for (int r = 0; r < R; ++r) s += p[(size_t)r * N];
-  out[idx] = s;
-}
-
-cudaError_t sum_rows(const float* P, float* out, int G, int R, int N, cudaStream_t st) {
-  const size_t n = (size_t)G * N;
-  sum_rows_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(P, out, G, R, N);
-  return cudaGetLastError();
-}
-
 size_t smem_bytes(int C) { return sizeof(float) * conv_ff::smem_floats(C); }
 
 template <class K>
@@ -443,7 +348,7 @@ extern "C" int conv_ff_train_backward(
   if (smem_bytes(C) > 227 * 1024) return cudaErrorInvalidValue;
   const bool bf16 = round_bf16 != 0;
   const Dropout drop{use_dropout != 0, threshold, keep};
-  const int tiles = n_tiles(T), splits = n_splits(B, T);
+  const int tiles = n_tiles(T);
   const size_t bt = (size_t)B * T;
   float* h = ws;
   float* da1c = h + bt * C;
@@ -466,16 +371,9 @@ extern "C" int conv_ff_train_backward(
       da2c, h, dr, w2r, w1r, da1c, pdb1, dx, T, C, bf16);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-  // dW1 (3, E, C) from rnd(x) and rnd(da1); dW2 (3, C, E) from h and rnd(da2).
-  wgrad_kernel<<<dim3(C / WG_TILE, E / WG_TILE, 3 * splits), 256, 0, stream>>>(
-      x, da1c, pw, B, T, E, C, splits, true, bf16);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if ((err = sum_rows(pw, dw1, 1, splits, 3 * E * C, stream)) != cudaSuccess) return err;
-  wgrad_kernel<<<dim3(E / WG_TILE, C / WG_TILE, 3 * splits), 256, 0, stream>>>(
-      h, da2c, pw, B, T, C, E, splits, false, bf16);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if ((err = sum_rows(pw, dw2, 1, splits, 3 * E * C, stream)) != cudaSuccess) return err;
-
+  if ((err = weight_grads(x, da1c, h, da2c, pw, dw1, dw2, B, T, E, C, bf16, stream)) !=
+      cudaSuccess)
+    return err;
   if ((err = sum_rows(pdb1, db1, 1, B * tiles, C, stream)) != cudaSuccess) return err;
   if ((err = sum_rows(pvec, dvec, 1, B * tiles, 3 * E, stream)) != cudaSuccess) return err;
   return sum_rows(pfilm, dfilm, B, tiles, 2 * E, stream);

@@ -13,8 +13,9 @@ float32 (the JAX ``preferred_element_type=float32`` contract); convs run
 in the compute dtype, add the bias in float32 and cast to ``out_dtype``;
 LayerNorm statistics are float32. In training, convs take the JAX
 package's shifted-matmul form (float32 results from operands rounded to
-the compute dtype), FFT blocks run the training kernels K2 and K3 with
-their in-kernel hash dropout, and the other dropouts draw from an
+the compute dtype), FFT blocks run the training kernels K2 and K3 (or, at
+the widths ``plan_conv_ff`` gives it, the C-blocked K4) with their
+in-kernel hash dropout, and the other dropouts draw from an
 explicit ``torch.Generator``.
 
 Each parameter-holding module has ``reset_parameters(gen)``, which draws
@@ -31,7 +32,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from daft_exprt_tpu_torch.ops.attention_train import attention_core
-from daft_exprt_tpu_torch.ops.conv_ff_train import conv_ff_train
+from daft_exprt_tpu_torch.ops.conv_ff_train import (conv_ff_train,
+                                                    conv_ff_train_blocked,
+                                                    plan_conv_ff)
 from daft_exprt_tpu_torch.ops.fft_block import fused_fft_block, pack_weights
 from daft_exprt_tpu_torch.ops.masking import mask_from_lengths
 
@@ -293,8 +296,8 @@ class MultiHeadAttention(nn.Module):
 # Position-wise conv feed-forward (+ FiLM)
 # ----------------------------------------------------------------------
 class ConvFF(nn.Module):
-    """Counterpart of ``conv_ff_apply`` (deterministic): conv -> relu ->
-    conv -> residual -> LayerNorm -> FiLM."""
+    """Counterpart of ``conv_ff_apply``: conv -> relu -> conv -> residual
+    -> LayerNorm -> FiLM; in training one K3 or K4 call."""
 
     def __init__(self, embed_dim: int, conv_channels: int, kernel: int):
         super().__init__()
@@ -316,18 +319,23 @@ class ConvFF(nn.Module):
 
     def forward_train(self, x, film, dtype, rate: float,
                       generator: torch.Generator):
-        """Training path: K3 with its in-kernel dropout; ``film`` None is
-        the identity ``[1 | 0]``."""
-        B, _, E = x.shape
+        """Training path: K3, or K4 at the widths ``plan_conv_ff`` gives
+        it, with the kernels' in-kernel dropout; ``film`` None is the
+        identity ``[1 | 0]``."""
+        B, T, E = x.shape
         if film is None:
             film = torch.cat([torch.ones((B, E), device=x.device),
                               torch.zeros((B, E), device=x.device)], dim=1)
         c1, c2 = self.convs["0"].conv, self.convs["2"].conv
+        C, _, kernel = c1.weight.shape
+        c_block = plan_conv_ff(T, E, C, kernel)
         seeds = draw_seeds(B, rate, generator, x.device)
-        return conv_ff_train(x.float(), c1.weight, c1.bias, c2.weight,
-                             c2.bias, self.layer_norm.weight,
-                             self.layer_norm.bias, film.float(), seeds, rate,
-                             dtype)
+        args = (x.float(), c1.weight, c1.bias, c2.weight, c2.bias,
+                self.layer_norm.weight, self.layer_norm.bias, film.float(),
+                seeds, rate)
+        if c_block == C:
+            return conv_ff_train(*args, dtype)
+        return conv_ff_train_blocked(*args, c_block, dtype)
 
 
 # ----------------------------------------------------------------------
@@ -338,9 +346,10 @@ class FFTBlock(nn.Module):
 
     In inference (no dropout, no gradients) the block is one fused K1
     call. In training (dropout rates given, or gradients needed) it runs
-    MHA through K2 -> row mask -> ConvFF through K3 -> row mask, both
-    differentiable. Each is the CUDA kernel for CUDA tensors and its plain
-    version on the CPU.
+    MHA through K2 -> row mask -> ConvFF through K3 or K4 (as
+    ``plan_conv_ff`` picks: K3 at the flagship's E=128, K4 at the wide
+    ablation's E=512) -> row mask, both differentiable. Each is the CUDA
+    kernel for CUDA tensors and its plain version on the CPU.
     """
 
     def __init__(self, embed_dim: int, num_heads: int, conv_channels: int,

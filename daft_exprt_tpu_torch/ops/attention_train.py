@@ -40,8 +40,10 @@ import torch
 from daft_exprt_tpu_torch.ops._build import load_library
 from daft_exprt_tpu_torch.ops.attention_common import NEG_INF, pick_q_tile
 
-KERNEL_WIDTH = 128       # the CUDA kernels' packed width E
-KERNEL_HEAD_DIMS = (16, 64)
+# the CUDA kernels' envelope: packed widths E that are multiples of 128
+# (the flagship's 128, the wide ablation's 512), head dims 16, 64 and 128
+KERNEL_WIDTH_MULTIPLE = 128
+KERNEL_HEAD_DIMS = (16, 64, 128)
 
 _MASK32 = 0xFFFFFFFF
 
@@ -184,21 +186,21 @@ def _kernels():
     lib = load_library("attention_train")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fwd = lib.attention_train_forward
-    fwd.argtypes = [p] * 8 + [i] * 4 + [f, i, ctypes.c_uint32, f, i, i, p]
+    fwd.argtypes = [p] * 8 + [i] * 5 + [f, i, ctypes.c_uint32, f, i, i, p]
     fwd.restype = i
     bwd = lib.attention_train_backward
-    bwd.argtypes = [p] * 12 + [i] * 4 + [f, i, ctypes.c_uint32, f, i, i, p]
+    bwd.argtypes = [p] * 12 + [i] * 5 + [f, i, ctypes.c_uint32, f, i, i, p]
     bwd.restype = i
     return fwd, bwd
 
 
 def _check_cuda(q, k, v, lengths, seeds, num_heads, dot_dtype, g=None):
     B, T, E = q.shape
-    if E != KERNEL_WIDTH or E % num_heads \
+    if E % KERNEL_WIDTH_MULTIPLE or E % num_heads \
             or E // num_heads not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"attention_core: the kernel takes E={KERNEL_WIDTH}"
-                         f" with head dims {KERNEL_HEAD_DIMS}, got E={E}, "
-                         f"H={num_heads}")
+        raise ValueError(f"attention_core: the kernel takes E % "
+                         f"{KERNEL_WIDTH_MULTIPLE} == 0 with head dims "
+                         f"{KERNEL_HEAD_DIMS}, got E={E}, H={num_heads}")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"attention_core: q/k/v dtype {q.dtype}")
     for name, t, dtype in (("q", q, q.dtype), ("k", k, q.dtype),
@@ -218,9 +220,9 @@ def _check_cuda(q, k, v, lengths, seeds, num_heads, dot_dtype, g=None):
         raise ValueError(f"attention_core: dot_dtype {dot_dtype}")
 
 
-def _scalars(T, num_heads, rate, dot_dtype, io_dtype):
-    D = KERNEL_WIDTH // num_heads
-    return (num_heads, pick_q_tile(T), 1.0 / math.sqrt(D), int(rate > 0.0),
+def _scalars(T, E, num_heads, rate, dot_dtype, io_dtype):
+    D = E // num_heads
+    return (E, num_heads, pick_q_tile(T), 1.0 / math.sqrt(D), int(rate > 0.0),
             dropout_threshold(rate) if rate > 0.0 else 0,
             1.0 / (1.0 - rate) if rate > 0.0 else 1.0,
             int(dot_dtype == torch.bfloat16), int(io_dtype == torch.bfloat16))
@@ -241,7 +243,7 @@ def attention_forward_cuda(q, k, v, lengths, seeds, num_heads, rate,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
             seeds.data_ptr(), out.data_ptr(), stats[0].data_ptr(),
             stats[1].data_ptr(), B, T,
-            *_scalars(T, num_heads, rate, dot_dtype, q.dtype), stream)
+            *_scalars(T, E, num_heads, rate, dot_dtype, q.dtype), stream)
     if err != 0:
         raise RuntimeError(f"attention_core: CUDA error {err} at launch")
     attention_core.fwd_launches += 1
@@ -265,7 +267,7 @@ def attention_backward_cuda(q, k, v, g, lengths, seeds, stats, num_heads,
             lengths.data_ptr(), seeds.data_ptr(), stats[0].data_ptr(),
             stats[1].data_ptr(), delta.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), B, T,
-            *_scalars(T, num_heads, rate, dot_dtype, q.dtype), stream)
+            *_scalars(T, E, num_heads, rate, dot_dtype, q.dtype), stream)
     if err != 0:
         raise RuntimeError(f"attention_core: CUDA error {err} at launch")
     attention_core.bwd_launches += 1

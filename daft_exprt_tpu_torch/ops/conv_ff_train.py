@@ -1,9 +1,11 @@
-"""Training conv feed-forward with in-kernel dropout (K3): CUDA kernels,
-wrappers, plain versions and the autograd Function.
+"""Training conv feed-forward with in-kernel dropout: K3 and its C-blocked
+variant K4. CUDA kernels, wrappers, plain versions, the dispatch plan and
+the autograd Function.
 
 Port of the Pallas TPU kernels ``daft_exprt_tpu/ops/conv_ff_train.py``
-``_fwd_kernel`` and ``_bwd_kernel``. One FFT block's feed-forward half
-for training:
+``_fwd_kernel`` and ``_bwd_kernel`` (K3) and ``_fwd_kernel_blocked``,
+``_bwd_rowlocal_kernel``, ``_bwd_blockgrads_kernel`` and
+``_bwd_dx_kernel`` (K4). One FFT block's feed-forward half for training:
 
   out = gamma * LN(dropout(conv2(relu(conv1(x)))) + x) + beta
 
@@ -13,7 +15,11 @@ the hidden from x and forms dx, the conv weight and bias gradients
 (summed over the batch), the LayerNorm scale and bias gradients and the
 per-row FiLM gradient. Dropout on the conv output uses the same
 counter-based hash as K2 (salt 0, row t, column e); kept values are
-divided by ``1 - rate``.
+divided by ``1 - rate``. K4 is the same function with the C hidden
+channels taken in blocks: conv2's sum a2 starts as the first block's
+partial plus b2 and adds each later block's partial in block order, and
+dx = dr + the blocks' conv1 transposes in block order, as the Pallas
+kernels accumulate them.
 
 Numerics follow the Pallas kernels: x is rounded to the compute dtype
 before conv1, the hidden after the ReLU, the dropped-out LN-input
@@ -23,10 +29,13 @@ are float32.
 
 Parameters are taken in the port's (reference PyTorch) layouts: conv
 weights (out, in, k), vectors (n,), FiLM (B, 2E) ``[gammas | betas]``;
-the gradients come back in the same layouts. On a CUDA tensor the
-wrappers launch the kernels of ``csrc/conv_ff_train.cu`` (counted in
-``conv_ff_train.fwd_launches`` and ``.bwd_launches``) or raise; on a CPU
-tensor they take the plain versions below.
+the gradients come back in the same layouts. :func:`plan_conv_ff` picks
+K3 or K4 from the shapes. On a CUDA tensor the wrappers launch the
+kernels of ``csrc/conv_ff_train.cu`` (K3, counted in
+``conv_ff_train.fwd_launches`` and ``.bwd_launches``) or
+``csrc/conv_ff_blocked.cu`` (K4, ``conv_ff_train_blocked.fwd_launches``
+and ``.bwd_launches``), or raise; on a CPU tensor they take the plain
+versions below.
 """
 
 from __future__ import annotations
@@ -46,6 +55,14 @@ from daft_exprt_tpu_torch.ops.fft_block import KERNEL_MAX_CHANNELS
 _EPS = 1e-5
 KERNEL_WIDTH = 128
 KERNEL_CHANNEL_MULTIPLE = 64  # the weight-gradient product's 64-wide tile
+# K4: widths E = 128 .. 512 in steps of 128 (one register accumulator of
+# E / 32 columns per lane), C blocks of multiples of 128 within one
+# block's 227 KB of dynamic shared memory on an H100
+BLOCKED_WIDTH_MULTIPLE = 128
+BLOCKED_MAX_WIDTH = 512
+BLOCKED_C_BLOCK = 128  # the plan's block: 4-channel groups fill 256 threads
+SMEM_BYTES = 227 * 1024
+_ROW_TILE = 32  # rows per tile (conv_ff_tile.cuh TT)
 
 
 def _rnd(t, dot_dtype):
@@ -57,6 +74,53 @@ def kernel_weights(w1, w2, dot_dtype):
     rounded to the dot dtype, as float32: (w1 (3, E, C), w2 (3, C, E))."""
     return (_rnd(w1.permute(2, 1, 0), dot_dtype).contiguous(),
             _rnd(w2.permute(2, 1, 0), dot_dtype).contiguous())
+
+
+# ----------------------------------------------------------------------
+# Dispatch: which kernel takes a shape
+# ----------------------------------------------------------------------
+def k3_takes(E: int, C: int) -> bool:
+    """K3's envelope: E = 128 and the (32 + 2) x C hidden tile of the
+    shared conv tile in one block's shared memory."""
+    return (E == KERNEL_WIDTH and C % KERNEL_CHANNEL_MULTIPLE == 0
+            and C <= KERNEL_MAX_CHANNELS)
+
+
+def blocked_smem_bytes(E: int, c_block: int) -> int:
+    """Dynamic shared memory of one K4 tile (``csrc/conv_ff_blocked.cu``
+    ``smem_floats``): the (32 + 6) x E input halo and the (32 + 2) x
+    c_block hidden, or the backward's 8 x 5 partial rows of E."""
+    tile = (_ROW_TILE + 6) * E + (_ROW_TILE + 2) * c_block
+    return 4 * max(tile, 40 * E)
+
+
+def blocked_takes(E: int, C: int, c_block: int) -> bool:
+    """K4's envelope."""
+    return (E % BLOCKED_WIDTH_MULTIPLE == 0 and 0 < E <= BLOCKED_MAX_WIDTH
+            and c_block > 0 and c_block % BLOCKED_WIDTH_MULTIPLE == 0
+            and C % c_block == 0
+            and blocked_smem_bytes(E, c_block) <= SMEM_BYTES)
+
+
+def plan_conv_ff(t: int, e: int, c: int, kernel: int) -> int:
+    """Dispatch plan for the training conv-FF at (T, E, C); the port's
+    counterpart of the JAX package's ``plan_conv_ff``, built on the H100
+    envelope of its own kernels (T does not enter: both take any T).
+
+    :return: ``c`` -- K3 (:func:`conv_ff_train`): where K3 takes the
+        shape, and at widths that are no multiple of 128 (on a CUDA tensor
+        K3's wrapper then raises; the CPU runs the plain version); a block
+        that divides ``c`` and is smaller -- K4
+        (:func:`conv_ff_train_blocked`) with that block: at widths E that
+        are multiples of 128 that K3 does not take.
+    """
+    del t
+    if kernel != 3:
+        raise ValueError(f"the training conv-FF takes k=3, got k={kernel}")
+    if k3_takes(e, c) or e % BLOCKED_WIDTH_MULTIPLE:
+        return c
+    cb = BLOCKED_C_BLOCK
+    return cb if cb < c and blocked_takes(e, c, cb) else c
 
 
 # ----------------------------------------------------------------------
@@ -86,19 +150,28 @@ def _conv3_t(g, w):
             + _shift_down(g @ w[2].t()))
 
 
-def _forward_core(x, w1k, b1, w2k, b2, seeds, rate, dot_dtype):
-    """Up to r = dropout(a2) + x: (h, a1 > 0, keep or None, r)."""
+def _blocks(C, c_block):
+    return [slice(c, c + c_block) for c in range(0, C, c_block)]
+
+
+def _forward_core(x, w1k, b1, w2k, b2, seeds, rate, c_block, dot_dtype):
+    """Up to r = dropout(a2) + x, the hidden channels in blocks of
+    ``c_block``: ([(h, a1 > 0) per block], keep or None, r)."""
     xc = _rnd(x, dot_dtype)
-    a1 = _conv3(xc, w1k) + b1
-    a1_pos = a1 > 0.0
-    h = _rnd(torch.where(a1_pos, a1, 0.0), dot_dtype)
-    a2 = _conv3(h, w2k) + b2
+    hidden, a2 = [], None
+    for s in _blocks(w1k.shape[-1], c_block):
+        a1 = _conv3(xc, w1k[..., s]) + b1[s]
+        a1_pos = a1 > 0.0
+        h = _rnd(torch.where(a1_pos, a1, 0.0), dot_dtype)
+        hidden.append((h, a1_pos))
+        part = _conv3(h, w2k[:, s])
+        a2 = part + b2 if a2 is None else a2 + part
     keep = None
     if rate > 0.0:
         keep = keep_mask(seeds.to(x.device)[:, None, None], 0, 0,
                          x.shape[1:], dropout_threshold(rate))
         a2 = torch.where(keep, a2 / (1.0 - rate), 0.0)
-    return h, a1_pos, keep, a2 + x
+    return hidden, keep, a2 + x
 
 
 def _ln_stats(r):
@@ -108,29 +181,33 @@ def _ln_stats(r):
     return (r - mean) * inv, inv
 
 
-def conv_ff_plain(x, w1, b1, w2, b2, ln_s, ln_b, film, seeds, rate: float,
-                  dot_dtype=torch.float32):
-    """K3's forward in plain PyTorch; same arguments as
-    :func:`conv_ff_train`. Returns (B, T, E) float32."""
+def conv_ff_blocked_plain(x, w1, b1, w2, b2, ln_s, ln_b, film, seeds,
+                          rate: float, c_block: int,
+                          dot_dtype=torch.float32):
+    """K4's forward in plain PyTorch; same arguments as
+    :func:`conv_ff_train_blocked`. Returns (B, T, E) float32."""
     w1k, w2k = kernel_weights(w1, w2, dot_dtype)
     E = x.shape[-1]
-    *_, r = _forward_core(x.float(), w1k, b1, w2k, b2, seeds, rate,
-                          dot_dtype)
+    _, _, r = _forward_core(x.float(), w1k, b1, w2k, b2, seeds, rate,
+                            c_block, dot_dtype)
     n, _ = _ln_stats(r)
     y = n * ln_s + ln_b
     return film[:, None, :E] * y + film[:, None, E:]
 
 
-def conv_ff_plain_backward(x, w1, b1, w2, b2, ln_s, ln_b, film, seeds, g,
-                           rate: float, dot_dtype=torch.float32):
-    """K3's backward in plain PyTorch, the recompute math of the Pallas
-    ``_bwd_kernel``. Returns float32 (dx, dw1, db1, dw2, db2, dln_s,
+def conv_ff_blocked_plain_backward(x, w1, b1, w2, b2, ln_s, ln_b, film,
+                                   seeds, g, rate: float, c_block: int,
+                                   dot_dtype=torch.float32):
+    """K4's backward in plain PyTorch, the math of the three blocked Pallas
+    calls: the row-local LayerNorm/FiLM/dropout backward once, then per C
+    block the weight and bias gradients from the recomputed hidden and the
+    block's term of dx. Returns float32 (dx, dw1, db1, dw2, db2, dln_s,
     dln_b, dfilm) in the arguments' layouts."""
     w1k, w2k = kernel_weights(w1, w2, dot_dtype)
     x, g = x.float(), g.float()
     E = x.shape[-1]
-    h, a1_pos, keep, r = _forward_core(x, w1k, b1, w2k, b2, seeds, rate,
-                                       dot_dtype)
+    hidden, keep, r = _forward_core(x, w1k, b1, w2k, b2, seeds, rate,
+                                    c_block, dot_dtype)
     n, inv = _ln_stats(r)
     y_ln = n * ln_s + ln_b
     dfilm = torch.cat([(g * y_ln).sum(1), g.sum(1)], dim=-1)
@@ -143,44 +220,67 @@ def conv_ff_plain_backward(x, w1, b1, w2, b2, ln_s, ln_b, film, seeds, g,
     da2 = dr if keep is None else torch.where(keep, dr / (1.0 - rate), 0.0)
     db2 = da2.sum((0, 1))
     da2c = _rnd(da2, dot_dtype)
-    dw2 = torch.stack([torch.einsum("btc,bte->ce", hs, da2c)
-                       for hs in _shifts(h)])
-    dh = _conv3_t(da2c, w2k)
-    da1 = torch.where(a1_pos, dh, 0.0)
-    db1 = da1.sum((0, 1))
-    da1c = _rnd(da1, dot_dtype)
     xc = _rnd(x, dot_dtype)
-    dw1 = torch.stack([torch.einsum("bte,btc->ec", xs, da1c)
-                       for xs in _shifts(xc)])
-    dx = dr + _conv3_t(da1c, w1k)
-    return (dx, dw1.permute(2, 1, 0), db1, dw2.permute(2, 1, 0), db2, dls,
-            dlb, dfilm)
+    dw1, db1, dw2, dx = [], [], [], dr
+    for s, (h, a1_pos) in zip(_blocks(w1k.shape[-1], c_block), hidden):
+        dw2.append(torch.stack([torch.einsum("btc,bte->ce", hs, da2c)
+                                for hs in _shifts(h)]))
+        da1 = torch.where(a1_pos, _conv3_t(da2c, w2k[:, s]), 0.0)
+        db1.append(da1.sum((0, 1)))
+        da1c = _rnd(da1, dot_dtype)
+        dw1.append(torch.stack([torch.einsum("bte,btc->ec", xs, da1c)
+                                for xs in _shifts(xc)]))
+        dx = dx + _conv3_t(da1c, w1k[..., s])
+    return (dx, torch.cat(dw1, -1).permute(2, 1, 0), torch.cat(db1),
+            torch.cat(dw2, 1).permute(2, 1, 0), db2, dls, dlb, dfilm)
+
+
+def conv_ff_plain(x, w1, b1, w2, b2, ln_s, ln_b, film, seeds, rate: float,
+                  dot_dtype=torch.float32):
+    """K3's forward in plain PyTorch (one C block); same arguments as
+    :func:`conv_ff_train`. Returns (B, T, E) float32."""
+    return conv_ff_blocked_plain(x, w1, b1, w2, b2, ln_s, ln_b, film, seeds,
+                                 rate, w1.shape[0], dot_dtype)
+
+
+def conv_ff_plain_backward(x, w1, b1, w2, b2, ln_s, ln_b, film, seeds, g,
+                           rate: float, dot_dtype=torch.float32):
+    """K3's backward in plain PyTorch, the recompute math of the Pallas
+    ``_bwd_kernel`` (one C block). Returns float32 (dx, dw1, db1, dw2,
+    db2, dln_s, dln_b, dfilm) in the arguments' layouts."""
+    return conv_ff_blocked_plain_backward(x, w1, b1, w2, b2, ln_s, ln_b,
+                                          film, seeds, g, rate, w1.shape[0],
+                                          dot_dtype)
 
 
 # ----------------------------------------------------------------------
 # Wrappers
 # ----------------------------------------------------------------------
 @functools.cache
-def _kernels():
-    """The C entry points of ``csrc/conv_ff_train.cu``, built at first
-    use."""
-    lib = load_library("conv_ff_train")
+def _kernels(blocked: bool):
+    """The C entry points of ``csrc/conv_ff_train.cu`` (K3) or
+    ``csrc/conv_ff_blocked.cu`` (K4), built at first use: (workspace
+    floats, forward, backward). K4's also take E and the C block."""
+    name = "conv_ff_blocked" if blocked else "conv_ff_train"
+    lib = load_library(name)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    ws = lib.conv_ff_train_workspace_floats
-    ws.argtypes = [i, i, i]
+    n_ints = 6 if blocked else 4  # shapes, then use_dropout
+    ws = getattr(lib, f"{name}_workspace_floats")
+    ws.argtypes = [i] * (4 if blocked else 3)
     ws.restype = ctypes.c_longlong
-    fwd = lib.conv_ff_train_forward
-    fwd.argtypes = [p] * 10 + [i] * 4 + [ctypes.c_uint32, f, i, p]
+    fwd = getattr(lib, f"{name}_forward")
+    fwd.argtypes = [p] * 10 + [i] * n_ints + [ctypes.c_uint32, f, i, p]
     fwd.restype = i
-    bwd = lib.conv_ff_train_backward
-    bwd.argtypes = [p] * 19 + [i] * 4 + [ctypes.c_uint32, f, i, p]
+    bwd = getattr(lib, f"{name}_backward")
+    bwd.argtypes = [p] * 19 + [i] * n_ints + [ctypes.c_uint32, f, i, p]
     bwd.restype = i
     return ws, fwd, bwd
 
 
 def _check_cuda(x, w1k, b1, w2k, b2, ln_s, ln_b, film, seeds, dot_dtype,
-                g=None):
-    """Raise on what the kernels do not take; return (B, T, C)."""
+                g=None, c_block=None):
+    """Raise on what K3 (``c_block`` None) or K4 does not take; return
+    (B, T, C)."""
     B, T, E = x.shape
     C = w1k.shape[-1]
     f32 = torch.float32
@@ -191,13 +291,21 @@ def _check_cuda(x, w1k, b1, w2k, b2, ln_s, ln_b, film, seeds, dot_dtype,
                "seeds": (seeds, (B,), torch.int32)}
     if g is not None:
         tensors["g"] = (g, (B, T, E), f32)
-    if E != KERNEL_WIDTH:
-        raise ValueError(f"conv_ff_train: the kernel takes E={KERNEL_WIDTH},"
-                         f" got {E}")
-    if C % KERNEL_CHANNEL_MULTIPLE or C > KERNEL_MAX_CHANNELS:
-        raise ValueError(f"conv_ff_train: the kernel takes conv channels "
-                         f"C % {KERNEL_CHANNEL_MULTIPLE} == 0, C <= "
-                         f"{KERNEL_MAX_CHANNELS}, got {C}")
+    if c_block is None:
+        if E != KERNEL_WIDTH:
+            raise ValueError(f"conv_ff_train: the kernel takes "
+                             f"E={KERNEL_WIDTH}, got {E}")
+        if not k3_takes(E, C):
+            raise ValueError(f"conv_ff_train: the kernel takes conv channels "
+                             f"C % {KERNEL_CHANNEL_MULTIPLE} == 0, C <= "
+                             f"{KERNEL_MAX_CHANNELS}, got {C}")
+    elif not blocked_takes(E, C, c_block):
+        raise ValueError(
+            f"conv_ff_train_blocked: the kernel takes E % "
+            f"{BLOCKED_WIDTH_MULTIPLE} == 0, E <= {BLOCKED_MAX_WIDTH}, a C "
+            f"block that is a multiple of {BLOCKED_WIDTH_MULTIPLE} dividing "
+            f"C within {SMEM_BYTES} bytes of shared memory, got E={E}, "
+            f"C={C}, c_block={c_block}")
     if dot_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"conv_ff_train: dot_dtype {dot_dtype}")
     for name, (t, shape, dtype) in tensors.items():
@@ -213,38 +321,50 @@ def _dropout_args(rate):
             1.0 - rate)
 
 
+def _shape_args(x, C, c_block):
+    B, T, E = x.shape
+    return (B, T, C) if c_block is None else (B, T, E, C, c_block)
+
+
+def _counter(c_block):
+    return conv_ff_train if c_block is None else conv_ff_train_blocked
+
+
 def conv_ff_forward_cuda(x, w1k, b1, w2k, b2, ln_s, ln_b, film, seeds,
-                         rate, dot_dtype):
-    """K3's forward kernel on kernel-layout weights (see
-    :func:`kernel_weights`)."""
-    B, T, C = _check_cuda(x, w1k, b1, w2k, b2, ln_s, ln_b, film, seeds,
-                      dot_dtype)
+                         rate, dot_dtype, c_block=None):
+    """K3's forward kernel, or K4's with ``c_block``, on kernel-layout
+    weights (see :func:`kernel_weights`)."""
+    _, _, C = _check_cuda(x, w1k, b1, w2k, b2, ln_s, ln_b, film, seeds,
+                          dot_dtype, c_block=c_block)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _kernels()[1](
+        err = _kernels(c_block is not None)[1](
             x.data_ptr(), w1k.data_ptr(), b1.data_ptr(), w2k.data_ptr(),
             b2.data_ptr(), ln_s.data_ptr(), ln_b.data_ptr(), film.data_ptr(),
-            seeds.data_ptr(), out.data_ptr(), B, T, C,
+            seeds.data_ptr(), out.data_ptr(), *_shape_args(x, C, c_block),
             *_dropout_args(rate), int(dot_dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"conv_ff_train: CUDA error {err} at launch")
-    conv_ff_train.fwd_launches += 1
+    _counter(c_block).fwd_launches += 1
     return out
 
 
 def conv_ff_backward_cuda(x, w1k, b1, w2k, b2, ln_s, ln_b, film, seeds, g,
-                          rate, dot_dtype):
-    """K3's backward kernels on kernel-layout weights: float32 (dx,
-    dw1 (3, E, C), db1, dw2 (3, C, E), db2, dln_s, dln_b, dfilm)."""
+                          rate, dot_dtype, c_block=None):
+    """K3's backward kernels, or K4's with ``c_block``, on kernel-layout
+    weights: float32 (dx, dw1 (3, E, C), db1, dw2 (3, C, E), db2, dln_s,
+    dln_b, dfilm)."""
     B, T, C = _check_cuda(x, w1k, b1, w2k, b2, ln_s, ln_b, film, seeds,
-                      dot_dtype, g)
+                          dot_dtype, g, c_block)
     E = x.shape[-1]
     # tap-reversed transposes for the data gradients
     w1r = w1k.flip(0).transpose(1, 2).contiguous()   # (3, C, E)
     w2r = w2k.flip(0).transpose(1, 2).contiguous()   # (3, E, C)
-    wsize, _, bwd = _kernels()
-    ws = torch.empty(int(wsize(B, T, C)), dtype=torch.float32,
+    wsize, _, bwd = _kernels(c_block is not None)
+    shape = _shape_args(x, C, c_block)
+    ws_shape = shape if c_block is None else shape[:-1]  # no C block
+    ws = torch.empty(int(wsize(*ws_shape)), dtype=torch.float32,
                      device=x.device)
     dx = torch.empty_like(x)
     dw1 = torch.empty((3, E, C), dtype=torch.float32, device=x.device)
@@ -259,54 +379,58 @@ def conv_ff_backward_cuda(x, w1k, b1, w2k, b2, ln_s, ln_b, film, seeds, g,
             b2.data_ptr(), ln_s.data_ptr(), ln_b.data_ptr(), film.data_ptr(),
             seeds.data_ptr(), g.data_ptr(), w1r.data_ptr(), w2r.data_ptr(),
             ws.data_ptr(), dx.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
-            dw2.data_ptr(), dvec.data_ptr(), dfilm.data_ptr(), B, T, C,
+            dw2.data_ptr(), dvec.data_ptr(), dfilm.data_ptr(), *shape,
             *_dropout_args(rate), int(dot_dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"conv_ff_train: CUDA error {err} at launch")
-    conv_ff_train.bwd_launches += 1
+    _counter(c_block).bwd_launches += 1
     return dx, dw1, db1, dw2, dvec[2], dvec[0], dvec[1], dfilm
 
 
 class _ConvFFTrain(torch.autograd.Function):
+    """K3 (``c_block`` None) or K4 with its C block."""
+
     @staticmethod
     def forward(ctx, x, w1, b1, w2, b2, ln_s, ln_b, film, seeds, rate,
-                dot_dtype):
+                c_block, dot_dtype):
         ctx.save_for_backward(x, w1, b1, w2, b2, ln_s, ln_b, film, seeds)
-        ctx.args = (rate, dot_dtype)
+        ctx.args = (rate, c_block, dot_dtype)
         if x.device.type == "cpu":
-            return conv_ff_plain(x, w1, b1, w2, b2, ln_s, ln_b, film, seeds,
-                                 rate, dot_dtype)
+            return conv_ff_blocked_plain(x, w1, b1, w2, b2, ln_s, ln_b, film,
+                                         seeds, rate, c_block or w1.shape[0],
+                                         dot_dtype)
         if x.device.type != "cuda":
             raise ValueError(f"conv_ff_train: unsupported device {x.device}")
         w1k, w2k = kernel_weights(w1, w2, dot_dtype)
         return conv_ff_forward_cuda(x.contiguous(), w1k, b1.contiguous(),
                                     w2k, b2.contiguous(), ln_s.contiguous(),
                                     ln_b.contiguous(), film.contiguous(),
-                                    seeds, rate, dot_dtype)
+                                    seeds, rate, dot_dtype, c_block)
 
     @staticmethod
     def backward(ctx, g):
         x, w1, b1, w2, b2, ln_s, ln_b, film, seeds = ctx.saved_tensors
-        rate, dot_dtype = ctx.args
+        rate, c_block, dot_dtype = ctx.args
         g = g.float().contiguous()
         if x.device.type == "cpu":
-            grads = conv_ff_plain_backward(x, w1, b1, w2, b2, ln_s, ln_b,
-                                           film, seeds, g, rate, dot_dtype)
+            grads = conv_ff_blocked_plain_backward(
+                x, w1, b1, w2, b2, ln_s, ln_b, film, seeds, g, rate,
+                c_block or w1.shape[0], dot_dtype)
         else:
             w1k, w2k = kernel_weights(w1, w2, dot_dtype)
             dx, dw1, db1, dw2, db2, dls, dlb, dfilm = conv_ff_backward_cuda(
                 x.contiguous(), w1k, b1.contiguous(), w2k, b2.contiguous(),
                 ln_s.contiguous(), ln_b.contiguous(), film.contiguous(),
-                seeds, g, rate, dot_dtype)
+                seeds, g, rate, dot_dtype, c_block)
             grads = (dx, dw1.permute(2, 1, 0), db1, dw2.permute(2, 1, 0),
                      db2, dls, dlb, dfilm)
-        return (*grads, None, None, None)
+        return (*grads, None, None, None, None)
 
 
 def conv_ff_train(x, w1, b1, w2, b2, ln_s, ln_b, film, seeds, rate: float,
                   dot_dtype=torch.bfloat16):
     """gamma * LN(dropout(conv2(relu(conv1(x)))) + x) + beta, differentiable
-    in every tensor argument but ``seeds``.
+    in every tensor argument but ``seeds`` (K3).
 
     :param x: (B, T, E) float32
     :param w1, b1: conv1 (C, E, 3), (C,); :param w2, b2: conv2 (E, C, 3), (E,)
@@ -317,8 +441,20 @@ def conv_ff_train(x, w1, b1, w2, b2, ln_s, ln_b, film, seeds, rate: float,
     :return: (B, T, E) float32
     """
     return _ConvFFTrain.apply(x, w1, b1, w2, b2, ln_s, ln_b, film, seeds,
-                              rate, dot_dtype)
+                              rate, None, dot_dtype)
+
+
+def conv_ff_train_blocked(x, w1, b1, w2, b2, ln_s, ln_b, film, seeds,
+                          rate: float, c_block: int,
+                          dot_dtype=torch.bfloat16):
+    """:func:`conv_ff_train` with the C hidden channels taken in blocks of
+    ``c_block`` (K4, for the widths :func:`plan_conv_ff` gives it); same
+    arguments and result."""
+    return _ConvFFTrain.apply(x, w1, b1, w2, b2, ln_s, ln_b, film, seeds,
+                              rate, c_block, dot_dtype)
 
 
 conv_ff_train.fwd_launches = 0
 conv_ff_train.bwd_launches = 0
+conv_ff_train_blocked.fwd_launches = 0
+conv_ff_train_blocked.bwd_launches = 0

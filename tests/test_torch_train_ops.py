@@ -1,13 +1,13 @@
 """The port's training ops against the JAX package, on the CPU.
 
-On the CPU the port's K2 (``attention_core``) and K3 (``conv_ff_train``)
-autograd Functions take their plain forward and plain backward (the
-recompute math the CUDA kernels are held to on the card by
-``chip_smoke.py``); here they are held against the Pallas kernels in
-interpret mode and their ``jax.vjp``, on the same numpy inputs, with
-bit-equal dropout masks at rate 0.1. Tolerances are the JAX kernel
-tests': K2 1e-5 forward and 2e-4 gradients
-(``tests/test_attention_train.py``), K3 2e-4 and 3e-4
+On the CPU the port's K2 (``attention_core``), K3 (``conv_ff_train``)
+and K4 (``conv_ff_train_blocked``) autograd Functions take their plain
+forward and plain backward (the recompute math the CUDA kernels are held
+to on the card by ``chip_smoke.py``); here they are held against the
+Pallas kernels in interpret mode and their ``jax.vjp``, on the same numpy
+inputs, with bit-equal dropout masks at rate 0.1. Tolerances are the JAX
+kernel tests': K2 1e-5 forward and 2e-4 gradients
+(``tests/test_attention_train.py``), K3 2e-4 and 3e-4, K4 2e-5 and 3e-4
 (``tests/test_conv_ff_train.py``), float32 throughout.
 """
 
@@ -23,15 +23,18 @@ from daft_exprt_tpu.ops import gaussian_upsampling as jgu
 from daft_exprt_tpu.ops.attention_train import _hash_bits
 from daft_exprt_tpu.ops.attention_train import attention_core as jax_attention
 from daft_exprt_tpu.ops.conv_ff_train import conv_ff_train as jax_conv_ff
+from daft_exprt_tpu.ops.conv_ff_train import \
+    conv_ff_train_blocked as jax_conv_ff_blocked
 from daft_exprt_tpu.ops.grad_reversal import gradient_reversal as jax_grl
 from daft_exprt_tpu_torch.ops import attention_common
 from daft_exprt_tpu_torch.ops.attention_train import (attention_core,
                                                       attention_plain,
                                                       attention_plain_backward,
                                                       hash_bits)
-from daft_exprt_tpu_torch.ops.conv_ff_train import (conv_ff_plain,
-                                                    conv_ff_plain_backward,
-                                                    conv_ff_train)
+from daft_exprt_tpu_torch.ops.conv_ff_train import (
+    conv_ff_blocked_plain, conv_ff_blocked_plain_backward, conv_ff_plain,
+    conv_ff_plain_backward, conv_ff_train, conv_ff_train_blocked,
+    plan_conv_ff)
 from daft_exprt_tpu_torch.ops.gaussian_upsampling import normalize
 from daft_exprt_tpu_torch.ops.grad_reversal import gradient_reversal
 
@@ -62,18 +65,22 @@ def test_pick_q_tile_and_neg_inf_match_jax():
 B, T, E = 2, 48, 32  # T=48: TQ=16, three query tiles, salts cross tiles
 
 
-def _attention_inputs(seed):
+def _attention_inputs(seed, width=E):
     rng = np.random.default_rng(seed)
-    q, k, v, g = (rng.standard_normal((B, T, E)).astype(np.float32)
+    q, k, v, g = (rng.standard_normal((B, T, width)).astype(np.float32)
                   for _ in range(4))
     lengths = np.array([T, 29], np.int32)  # ragged
     seeds = np.array([-5, 1 << 30], np.int32)
     return q, k, v, g, lengths, seeds
 
 
-@pytest.mark.parametrize("H,rate", [(2, 0.0), (2, 0.1), (8, 0.0), (8, 0.1)])
-def test_attention_core_matches_jax(H, rate):
-    q, k, v, g, lengths, seeds = _attention_inputs(H)
+@pytest.mark.parametrize("H,rate,width", [
+    pytest.param(2, 0.0, E, id="2-0.0"), pytest.param(2, 0.1, E, id="2-0.1"),
+    pytest.param(8, 0.0, E, id="8-0.0"), pytest.param(8, 0.1, E, id="8-0.1"),
+    # the wide ablation's head dim D=128 (K2's G=8 instance on the card)
+    pytest.param(2, 0.1, 256, id="E256-2-0.1")])
+def test_attention_core_matches_jax(H, rate, width):
+    q, k, v, g, lengths, seeds = _attention_inputs(H, width)
 
     def jfn(q, k, v):
         return jax_attention(q, k, v, jnp.asarray(lengths),
@@ -185,6 +192,112 @@ def test_conv_ff_plain_backward_is_autograd_of_plain_forward():
 
 
 # ----------------------------------------------------------------------
+# K4: C-blocked training conv feed-forward
+# ----------------------------------------------------------------------
+GRAD_NAMES = ("x", "w1", "b1", "w2", "b2", "ln_s", "ln_b", "film")
+
+
+def _blocked_inputs(seed, T_, C_, E_=128, B_=2):
+    rng = np.random.default_rng(seed)
+    p = jnn.conv_ff_init(jax.random.PRNGKey(seed), E_, C_, 3)
+    jparams = (np.asarray(p["conv1"]["w"]), np.asarray(p["conv1"]["b"]),
+               np.asarray(p["conv2"]["w"]), np.asarray(p["conv2"]["b"]),
+               (1 + 0.1 * rng.standard_normal(E_)).astype(np.float32),
+               (0.1 * rng.standard_normal(E_)).astype(np.float32))
+    x, g = (rng.standard_normal((B_, T_, E_)).astype(np.float32)
+            for _ in range(2))
+    film = np.concatenate([1 + 0.3 * rng.standard_normal((B_, E_)),
+                           0.3 * rng.standard_normal((B_, E_))],
+                          1).astype(np.float32)
+    return jparams, x, g, film, np.array([11, -3], np.int32)[:B_]
+
+
+@pytest.mark.parametrize("c_block,C_,T_,rate", [(128, 256, 32, 0.1),
+                                                (128, 512, 64, 0.0),
+                                                (256, 512, 64, 0.1)])
+def test_conv_ff_blocked_matches_jax(c_block, C_, T_, rate):
+    """The port's K4 (plain on the CPU) against the JAX blocked Pallas
+    kernels in interpret mode and their VJP: 2e-5 forward, 3e-4 gradients
+    (``tests/test_conv_ff_train.py`` blocked tolerances)."""
+    jparams, x, g, film, seeds = _blocked_inputs(c_block + C_, T_, C_)
+    w1, b1, w2, b2, ls, lb = jparams
+    jargs = (jnp.asarray(x), jnp.asarray(w1), jnp.asarray(b1)[None],
+             jnp.asarray(w2), jnp.asarray(b2)[None], jnp.asarray(ls)[None],
+             jnp.asarray(lb)[None], jnp.asarray(film)[:, None])
+    want, vjp = jax.vjp(lambda *a: jax_conv_ff_blocked(
+        *a, jnp.asarray(seeds), rate, c_block, jnp.float32, True), *jargs)
+    want_grads = vjp(jnp.asarray(g))
+    leaves = [_t(a, grad=True) for a in (x, *_port_params(jparams), film)]
+    out = conv_ff_train_blocked(*leaves, _t(seeds), rate, c_block,
+                                torch.float32)
+    out.backward(_t(g))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want),
+                               rtol=2e-5, atol=2e-5)
+    got = [t.grad.numpy() for t in leaves]
+    got[1] = got[1].transpose(2, 1, 0)  # back to the JAX layouts
+    got[3] = got[3].transpose(2, 1, 0)
+    for name, a, w in zip(GRAD_NAMES, got, want_grads):
+        np.testing.assert_allclose(a, np.asarray(w).reshape(a.shape),
+                                   rtol=3e-4, atol=3e-4, err_msg=name)
+
+
+def test_conv_ff_blocked_plain_backward_is_autograd_of_plain_forward():
+    jparams, x, g, film, seeds = _conv_ff_inputs(6)
+    leaves = [_t(a, grad=True) for a in (x, *_port_params(jparams), film)]
+    conv_ff_blocked_plain(*leaves, _t(seeds), 0.1, CC // 4).backward(_t(g))
+    got = conv_ff_blocked_plain_backward(
+        *(t.detach() for t in leaves), _t(seeds), _t(g), 0.1, CC // 4)
+    for name, a, t in zip(GRAD_NAMES, got, leaves):
+        np.testing.assert_allclose(a.numpy(), t.grad.numpy(), rtol=3e-4,
+                                   atol=3e-4, err_msg=name)
+
+
+def test_conv_ff_blocked_plain_matches_unblocked_at_rate_half():
+    """Masks from the same (seed, row, column) coordinates: blocked and
+    unblocked plain versions agree, forward and gradients (2e-5)."""
+    jparams, x, g, film, seeds = _conv_ff_inputs(7)
+    args = (_t(x), *(_t(a) for a in _port_params(jparams)), _t(film),
+            _t(seeds))
+    np.testing.assert_allclose(
+        conv_ff_blocked_plain(*args, 0.5, CC // 2).numpy(),
+        conv_ff_plain(*args, 0.5).numpy(), rtol=2e-5, atol=2e-5)
+    for name, a, b in zip(GRAD_NAMES,
+                          conv_ff_blocked_plain_backward(*args, _t(g), 0.5,
+                                                         CC // 2),
+                          conv_ff_plain_backward(*args, _t(g), 0.5)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=2e-5,
+                                   atol=2e-5, err_msg=name)
+
+
+def test_plan_conv_ff_picks_k3_or_k4():
+    # K3: the flagship and the CPU tests' narrow widths
+    assert plan_conv_ff(768, 128, 1024, 3) == 1024
+    assert plan_conv_ff(48, 16, 24, 3) == 24
+    # K4: the wide ablation (and E=128 past K3's tile), 128-channel blocks
+    assert plan_conv_ff(768, 512, 512, 3) == 128
+    assert plan_conv_ff(64, 256, 256, 3) == 128
+    assert plan_conv_ff(768, 128, 2048, 3) == 128
+    with pytest.raises(ValueError, match="k=3"):
+        plan_conv_ff(768, 512, 512, 5)
+
+
+@pytest.mark.parametrize("shape", [(768, 128, 1024), (768, 512, 512)])
+def test_plan_conv_ff_picks_the_jax_kernel(monkeypatch, shape):
+    """The same kernel as the JAX plan on a TPU at the flagship and the
+    wide shape (K3 where it returns C, K4 where it returns a block)."""
+    from daft_exprt_tpu.ops.conv_ff_train import \
+        plan_conv_ff as jax_plan_conv_ff
+    monkeypatch.delenv("DAFT_DISABLE_TRAIN_FF", raising=False)
+    monkeypatch.delenv("DAFT_VMEM_BUDGET_MB", raising=False)
+    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    C_ = shape[2]
+    want = jax_plan_conv_ff(*shape, 3)
+    got = plan_conv_ff(*shape, 3)
+    assert (got == C_) == (want == C_)
+    assert C_ % got == 0
+
+
+# ----------------------------------------------------------------------
 # Small ops
 # ----------------------------------------------------------------------
 def test_gradient_reversal_matches_jax(rng_np):
@@ -219,7 +332,7 @@ def test_normalize_backward_finite_where_probabilities_underflow(rng_np):
 # The CUDA wrappers refuse what their kernels do not take (checked before
 # any launch, so CPU tensors reach the checks here)
 # ----------------------------------------------------------------------
-@pytest.mark.parametrize("E_,H", [(32, 2), (128, 4), (128, 1)])
+@pytest.mark.parametrize("E_,H", [(32, 2), (128, 4), (1024, 4)])
 def test_attention_wrapper_refuses_unsupported_widths(E_, H):
     from daft_exprt_tpu_torch.ops.attention_train import \
         attention_forward_cuda
@@ -256,6 +369,21 @@ def test_conv_ff_wrapper_refuses_unsupported_widths(E_, C):
             torch.zeros(E_), torch.zeros(E_), torch.zeros(E_),
             torch.zeros((2, 2 * E_)), torch.zeros((2,), dtype=torch.int32),
             0.0, torch.bfloat16)
+
+
+@pytest.mark.parametrize("E_,C,c_block", [(1024, 512, 128), (192, 512, 128),
+                                          (512, 512, 96), (512, 384, 256)])
+def test_conv_ff_blocked_wrapper_refuses_unsupported_widths(E_, C, c_block):
+    """Widths neither kernel takes: past K4's 512, no multiple of 128, a
+    block that is no multiple of 128 or does not divide C."""
+    from daft_exprt_tpu_torch.ops.conv_ff_train import conv_ff_forward_cuda
+    x = torch.zeros((2, 16, E_))
+    with pytest.raises(ValueError, match="the kernel takes"):
+        conv_ff_forward_cuda(
+            x, torch.zeros((3, E_, C)), torch.zeros(C), torch.zeros((3, C, E_)),
+            torch.zeros(E_), torch.zeros(E_), torch.zeros(E_),
+            torch.zeros((2, 2 * E_)), torch.zeros((2,), dtype=torch.int32),
+            0.0, torch.bfloat16, c_block)
 
 
 # ----------------------------------------------------------------------

@@ -8,6 +8,10 @@ cross back through the same mapping. The port's FFT blocks take K2's and
 K3's plain forward and backward here; the JAX package's training path on
 the CPU is XLA autodiff, the same function.
 
+A tiny wide-head configuration (E=256, 2 heads of 128, conv channels
+256) takes the same checks through the C-blocked conv-FF (K4): there
+``plan_conv_ff`` leaves K3 for K4, whose plain version runs here.
+
 Gradients and the optimizer are held apart: at step 1 Adam moves each
 parameter by about lr * sign(g), so a gradient of 1e-9 in one package and
 -1e-9 in the other would move it by 2 lr.
@@ -31,6 +35,7 @@ from daft_exprt_tpu.training.schedule import make_lr_schedule as jax_schedule
 from daft_exprt_tpu_torch.config import HyperParams
 from daft_exprt_tpu_torch.convert import state_dict_from_jax
 from daft_exprt_tpu_torch.models.daft_exprt import DaftExprt
+from daft_exprt_tpu_torch.ops.conv_ff_train import conv_ff_train_blocked
 from daft_exprt_tpu_torch.training.loss import compute_loss
 from daft_exprt_tpu_torch.training.schedule import make_lr_schedule
 from daft_exprt_tpu_torch.training.step import (INPUT_KEYS, Optimizer,
@@ -53,18 +58,27 @@ def _no_drop(cfg):
 
 def _hparams(**overrides):
     base = tiny_hparams()
-    jhp = tiny_hparams(
-        accumulation_steps=ACCUM, weight_decay=1e-6,
-        prosody_encoder=_no_drop(base.prosody_encoder),
-        phoneme_encoder=_no_drop(base.phoneme_encoder),
-        local_prosody_predictor=_no_drop(base.local_prosody_predictor),
-        frame_decoder=_no_drop(base.frame_decoder), **overrides)
+    modules = {m: _no_drop(getattr(base, m)) for m in (
+        "prosody_encoder", "phoneme_encoder", "local_prosody_predictor",
+        "frame_decoder")}
+    jhp = tiny_hparams(accumulation_steps=ACCUM, weight_decay=1e-6,
+                       **{**modules, **overrides})
     return jhp, HyperParams(verbose=False, **jhp.as_dict())
 
 
-def _stacked_batch(hp, seed=0):
-    batches = [synthetic_batch(hp, batch_size=MICRO_B, seed=seed + i)
-               for i in range(ACCUM)]
+def _wide_hparams():
+    """Every FFT block at E=256, 2 heads of D=128, conv channels 256, one
+    block per module (the wide ablation's structure, cut to size)."""
+    wide = dict(hidden_embed_dim=256, attn_nb_heads=2, attn_dropout=0.0,
+                conv_kernel=3, conv_channels=256, conv_dropout=0.0,
+                nb_blocks=1)
+    return _hparams(prosody_encoder=wide, phoneme_encoder=wide,
+                    frame_decoder=wide)
+
+
+def _stacked_batch(hp, seed=0, **sizes):
+    batches = [synthetic_batch(hp, batch_size=MICRO_B, seed=seed + i,
+                               **sizes) for i in range(ACCUM)]
     return {k: np.stack([b[k] for b in batches]) for k in batches[0]}
 
 
@@ -74,14 +88,13 @@ def _torch(tree):
     return torch.from_numpy(np.array(tree, copy=True))
 
 
-@pytest.fixture(scope="module")
-def setup():
-    jhp, thp = _hparams()
+def _reference(jhp, thp, batch):
+    """JAX params crossed into the port (strict), and JAX's loss, first
+    micro-batch outputs and accumulated gradients on ``batch``."""
     jmodel = JaxDaftExprt(jhp)
     params = jax.device_get(jmodel.init_params(jax.random.PRNGKey(0)))
     tmodel = DaftExprt(thp, device="cpu", seed=1)
     tmodel.load_state_dict(state_dict_from_jax(params), strict=True)
-    batch = _stacked_batch(jhp)
 
     def loss_accum(p):
         total, first = 0.0, None
@@ -102,6 +115,37 @@ def setup():
                 outs=jax.device_get(outs), grads=jax.device_get(grads))
 
 
+@pytest.fixture(scope="module")
+def setup():
+    jhp, thp = _hparams()
+    return _reference(jhp, thp, _stacked_batch(jhp))
+
+
+@pytest.fixture(scope="module")
+def wide_setup():
+    jhp, thp = _wide_hparams()
+    return _reference(jhp, thp, _stacked_batch(jhp, max_symbols=16,
+                                               max_frames=64))
+
+
+@pytest.fixture
+def conv_ff_spy(monkeypatch):
+    """Counts the model's K4 calls; a K3 call fails the test."""
+    from daft_exprt_tpu_torch.models import modules
+    calls = []
+
+    def blocked(*args):
+        calls.append(args[-2])  # the C block
+        return conv_ff_train_blocked(*args)
+
+    def unblocked(*args):
+        raise AssertionError("K3 ran where the plan gives K4")
+
+    monkeypatch.setattr(modules, "conv_ff_train_blocked", blocked)
+    monkeypatch.setattr(modules, "conv_ff_train", unblocked)
+    return calls
+
+
 def _micro(batch, i):
     return {k: torch.from_numpy(np.array(v[i])) for k, v in batch.items()}
 
@@ -118,6 +162,20 @@ def _assert_forward_outputs(tout, jout, tol):
     np.testing.assert_array_equal(t_enc[3].numpy(), j_enc[3])
 
 
+def _check_gradients(s, model, metrics):
+    want = state_dict_from_jax(s["grads"])
+    named = dict(model.named_parameters())
+    assert set(named) == set(want)
+    for name, p in named.items():
+        np.testing.assert_allclose(p.grad.numpy(), want[name].numpy(),
+                                   rtol=GRAD_RTOL, atol=GRAD_ATOL,
+                                   err_msg=name)
+    np.testing.assert_allclose(float(metrics["loss"]), s["loss"], rtol=1e-5)
+    np.testing.assert_allclose(float(metrics["grad_norm"]),
+                               float(optax.global_norm(s["grads"])),
+                               rtol=1e-4)
+
+
 def test_forward_train_matches_jax(setup):
     s = setup
     tout = s["tmodel"](batch_to_inputs(_micro(s["batch"], 0)), train=True)
@@ -130,17 +188,8 @@ def test_accumulated_gradients_match_jax(setup):
     model = copy.deepcopy(s["tmodel"])
     step = make_train_step(model, s["thp"])
     metrics = step(s["batch"], torch.Generator().manual_seed(0), ITERATION)
-    want = state_dict_from_jax(s["grads"])
+    _check_gradients(s, model, metrics)
     named = dict(model.named_parameters())
-    assert set(named) == set(want)
-    for name, p in named.items():
-        np.testing.assert_allclose(p.grad.numpy(), want[name].numpy(),
-                                   rtol=GRAD_RTOL, atol=GRAD_ATOL,
-                                   err_msg=name)
-    np.testing.assert_allclose(float(metrics["loss"]), s["loss"], rtol=1e-5)
-    np.testing.assert_allclose(float(metrics["grad_norm"]),
-                               float(optax.global_norm(s["grads"])),
-                               rtol=1e-4)
     np.testing.assert_allclose(
         float(metrics["learning_rate"]),
         float(jax_schedule(s["jhp"])(ITERATION)), rtol=1e-6)
@@ -149,6 +198,23 @@ def test_accumulated_gradients_match_jax(setup):
                                  "weight"].detach(),
                            s["tmodel"].frame_decoder.projection.linear_layer
                            .weight.detach())
+
+
+def test_wide_forward_train_matches_jax_through_k4(wide_setup, conv_ff_spy):
+    s = wide_setup
+    tout = s["tmodel"](batch_to_inputs(_micro(s["batch"], 0)), train=True)
+    _assert_forward_outputs(tout, s["outs"], OUT_TOL)
+    assert conv_ff_spy == [128] * 3  # one FFT block in each module
+
+
+def test_wide_accumulated_gradients_match_jax_through_k4(wide_setup,
+                                                         conv_ff_spy):
+    s = wide_setup
+    model = copy.deepcopy(s["tmodel"])
+    metrics = make_train_step(model, s["thp"])(
+        s["batch"], torch.Generator().manual_seed(0), ITERATION)
+    _check_gradients(s, model, metrics)
+    assert conv_ff_spy == [128] * 3 * ACCUM
 
 
 @pytest.mark.parametrize("weighted", [False, True])
