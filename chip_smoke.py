@@ -39,7 +39,10 @@ result line):
 5. hold the training attention kernels (K2, forward and backward) against
    their plain versions at the flagship and wide training shapes (E=128
    and E=512, D=16, 64 and 128), f32 and bf16, at dropout rates 0 and
-   0.1 (bit-equal masks), and time them beside
+   0.1 (bit-equal masks; bf16 with rounding takes the tensor-core
+   instance, checked by its launch counters and its shared-memory plan
+   against the built kernel's; two bf16 backward runs bit-identical), and
+   time every training shape at bf16 beside
    ``scaled_dot_product_attention``; the same for the training conv-FF
    kernels (K3), with a check that two backward runs give bit-identical
    weight gradients. At bf16 a control runs the same kernels with their
@@ -47,8 +50,10 @@ result line):
 6. take training steps at the flagship width (bf16, dropout 0.1, batch
    16, accumulation 3, L=128 symbols, T=768 frames) through
    ``make_train_step``: 2 warm-up and 5 timed steps, the K2 and K3
-   launch counters read around the timed ones (12 x 3 per step each, K1
-   and K4 none); profile one step; then hold a small float32 step on the
+   launch counters read around the timed ones (12 x 3 per step each, every
+   K2 launch on the tensor-core instance, K1 and K4 none); profile one
+   step (K2's device time all in its tensor-core kernels); then hold a
+   small float32 step (K2 on its CUDA-core instance) on the
    card against the same step on the CPU (loss, gradient norm,
    gradients);
 7. the wide-head ablation (``wide_head_hparams``: E=512, 4 heads of
@@ -164,6 +169,20 @@ def cuda_ms(fn, reps=25, warmup=3):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def device_ms(fn, reps=10):
+    """Device milliseconds of all the kernels one call of ``fn`` runs
+    (torch.profiler over ``reps`` calls after one warm-up), without the
+    host's time between launches that ``cuda_ms`` counts when the device
+    waits for it; None where the profiler records no device time (it
+    missed one window on an H100: such a window is taken again once)."""
+    fn()
+    for _ in range(2):
+        report = profile_kernels(lambda: [fn() for _ in range(reps)], {})
+        if report is not None:
+            return report["device_busy_ms"] / reps
+    return None
 
 
 def k1_bound(lengths, B, T, dot_dtype):
@@ -306,7 +325,8 @@ def k3_bound(B, T, dot_dtype, backward, E=E, C=C):
 def sdpa_ms(q, k, v, g, lengths, H):
     """The library yardstick for K2 at rate 0: scaled_dot_product_attention
     with the boolean key mask (forward), and autograd through it
-    (backward), on the same bf16 inputs. Used nowhere in the port."""
+    (backward), on the same bf16 inputs; (forward, backward) times by CUDA
+    events, then on the device alone. Used nowhere in the port."""
     import torch.nn.functional as F
 
     B, T, width = q.shape
@@ -324,24 +344,30 @@ def sdpa_ms(q, k, v, g, lengths, H):
         return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
 
     out = fwd()
-    return cuda_ms(fwd), cuda_ms(lambda: torch.autograd.grad(
-        out, (q4, k4, v4), g4, retain_graph=True))
+
+    def bwd():
+        return torch.autograd.grad(out, (q4, k4, v4), g4, retain_graph=True)
+    return cuda_ms(fwd), cuda_ms(bwd), device_ms(fwd), device_ms(bwd)
 
 
 # (name, B, T, heads, lengths, E): the flagship and wide training steps'
 # K2 launches (batch 16; the wide ablation has 4 heads of D=128 at
 # E=512); edge shapes (untimed): T=48 has TQ=16, so the dropout salts
-# cross query tiles, with a zero-length row; T=2048 is the largest frame
-# bucket
+# cross query tiles, with a zero-length row; T=37 has no power-of-two
+# divisor, so TQ = T, and odd rows; T=2048 is the largest frame bucket
 K2_SHAPES = [("prosody_encoder", 16, 768, 8, None, E),
              ("phoneme_encoder", 16, 128, 2, None, E),
              ("frame_decoder", 16, 768, 2, None, E),
              ("edge_T48", 3, 48, 8, [48, 17, 0], E),
+             ("edge_T37", 2, 37, 2, [37, 11], E),
              ("edge_T2048", 2, 2048, 2, [2048, 1500], E),
              ("wide_frame_rate", 16, 768, 4, None, 512),
              ("wide_symbol_rate", 16, 128, 4, None, 512),
              ("wide_edge_T48", 3, 48, 4, [48, 17, 0], 512)]
-K2_TIMED = ("frame_decoder", "wide_frame_rate")
+# every shape the training steps launch K2 at, timed at bf16; the kernels
+# line reads frame_decoder first
+K2_TIMED = ("prosody_encoder", "phoneme_encoder", "frame_decoder",
+            "wide_frame_rate", "wide_symbol_rate")
 # K2 kernel vs plain (see _err): f32 as tests/test_attention_train.py
 # (1e-5 forward, 2e-4 gradients); bf16 max abs 2e-2 of max(1, |ref|) as a
 # coarse bound, and the bf16 relative L2 error below (see _rel_l2)
@@ -390,15 +416,40 @@ def _bf16_verdict(kernel, errs, control):
             f"{errs}, control with rounding off {control}")
 
 
+def check_k2_plan():
+    """The wrapper's shared-memory plan of the tensor-core instance equals
+    the built kernel's own count at every head dim it takes."""
+    from daft_exprt_tpu_torch.ops.attention_train import (plan_attention,
+                                                          tc_smem_bytes)
+
+    plan = {}
+    for d in (16, 64, 128):
+        width, heads = (128, 128 // d) if d < 128 else (512, 4)
+        mirror = plan_attention(768, width, heads, torch.bfloat16,
+                                torch.bfloat16)
+        built = tc_smem_bytes(d)
+        if mirror.instance != "tensor_core" or mirror.smem_bytes != built:
+            raise AssertionError(f"K2 plan at D={d}: {mirror}, kernel {built}")
+        plan[d] = built
+    print("K2 tensor-core shared memory per head dim", json.dumps(plan),
+          flush=True)
+    return plan
+
+
 def check_k2():
     """K2 (training attention) forward and backward against their plain
     versions at the flagship and wide training shapes, f32 and bf16, rates
-    0 and 0.1; at bf16 the control with rounding off must fail; the
-    flagship decoder and the wide frame-rate bf16 shapes timed with the
-    kernel, the plain version and SDPA."""
+    0 and 0.1; bf16 with rounding runs the tensor-core instance (its
+    counters move, the control's do not) and gives bit-identical gradients
+    over two backward runs; at bf16 the control with rounding off must
+    fail; every training shape timed at bf16 with the kernel, the plain
+    version and SDPA."""
     from daft_exprt_tpu_torch.ops.attention_train import (
         attention_backward_cuda, attention_core, attention_forward_cuda,
         attention_plain, attention_plain_backward)
+
+    def tc_launches():
+        return attention_core.tc_fwd_launches, attention_core.tc_bwd_launches
 
     rng = np.random.default_rng(3)
     rows = []
@@ -413,13 +464,26 @@ def check_k2():
         q, k, v, g = (_cuda(rng.standard_normal((B, T, width)).astype(
             np.float32)) for _ in range(4))
         for dot_dtype in (torch.float32, torch.bfloat16):
+            bf16 = dot_dtype == torch.bfloat16
             qd, kd, vd = (t.to(dot_dtype) for t in (q, k, v))
             for rate in RATES:
                 args = (lengths, seeds, H, rate, dot_dtype)
                 qg, kg, vg = (t.clone().requires_grad_() for t in (qd, kd, vd))
+                before = tc_launches()
                 out = attention_core(qg, kg, vg, *args)
-                grads = torch.autograd.grad(out, (qg, kg, vg), g)
+                grads = torch.autograd.grad(out, (qg, kg, vg), g,
+                                            retain_graph=True)
+                again = torch.autograd.grad(out, (qg, kg, vg), g)
                 torch.cuda.synchronize()
+                tc = [a - b for a, b in zip(tc_launches(), before)]
+                if tc != ([1, 2] if bf16 else [0, 0]):
+                    raise AssertionError(f"K2 {name} {dot_dtype}: tensor-core "
+                                         f"launches {tc}")
+                identical = all(torch.equal(a, b)
+                                for a, b in zip(grads, again))
+                if bf16 and not identical:
+                    raise AssertionError(f"K2 {name} rate {rate}: two "
+                                         "backward runs differ")
                 ref = attention_plain(qd, kd, vd, *args)
                 ref_grads = [t.to(dot_dtype) for t in attention_plain_backward(
                     qd, kd, vd, g, *args)]
@@ -431,15 +495,20 @@ def check_k2():
                 row = {"shape": name, "B": B, "T": T, "E": width, "H": H,
                        "dtype": dtype_name(dot_dtype), "rate": rate,
                        "fwd_err": err_f, "bwd_err": err_b,
-                       "tol": [tol_f, tol_g]}
-                if dot_dtype == torch.bfloat16:
-                    # the control: the same kernels, rounding off
+                       "tol": [tol_f, tol_g],
+                       "bwd_bit_identical": identical}
+                if bf16:
+                    # the control: the same kernels, rounding off (the
+                    # CUDA-core instance)
                     c_args = (lengths, seeds, H, rate, torch.float32)
+                    before = tc_launches()
                     c_out, c_stats = attention_forward_cuda(qd, kd, vd,
                                                             *c_args)
                     c_grads = attention_backward_cuda(
                         qd, kd, vd, g, lengths, seeds, c_stats, H, rate,
                         torch.float32)
+                    if tc_launches() != before:
+                        raise AssertionError("K2 control ran on tensor cores")
                     row["rel_l2"] = {n: _rel_l2(a, b) for n, a, b in zip(
                         K2_ROUNDED, (out, *grads), (ref, *ref_grads))}
                     row["control_rel_l2"] = {
@@ -448,15 +517,21 @@ def check_k2():
                 print("K2", json.dumps(row), flush=True)
                 if not (ok_f and all(ok for _, ok in errs)):
                     raise AssertionError(f"K2 disagrees with plain: {row}")
-                if dot_dtype == torch.bfloat16:
+                if bf16:
                     _bf16_verdict("K2", row["rel_l2"], row["control_rel_l2"])
-                if name in K2_TIMED and dot_dtype == torch.bfloat16:
+                if name in K2_TIMED and bf16:
                     _, stats = attention_forward_cuda(qd, kd, vd, *args)
-                    row["fwd_ms"] = cuda_ms(lambda: attention_forward_cuda(
-                        qd, kd, vd, *args))
-                    row["bwd_ms"] = cuda_ms(lambda: attention_backward_cuda(
-                        qd, kd, vd, g, lengths, seeds, stats, H, rate,
-                        dot_dtype))
+
+                    def fwd():
+                        return attention_forward_cuda(qd, kd, vd, *args)
+
+                    def bwd():
+                        return attention_backward_cuda(
+                            qd, kd, vd, g, lengths, seeds, stats, H, rate,
+                            dot_dtype)
+                    row["fwd_ms"], row["bwd_ms"] = cuda_ms(fwd), cuda_ms(bwd)
+                    row["fwd_device_ms"] = device_ms(fwd)
+                    row["bwd_device_ms"] = device_ms(bwd)
                     row["fwd_plain_ms"] = cuda_ms(lambda: attention_plain(
                         qd, kd, vd, *args), reps=5)
                     row["bwd_plain_ms"] = cuda_ms(
@@ -467,8 +542,10 @@ def check_k2():
                     row["bwd_bound_ms"], row["bwd_bound_by"] = k2_bound(
                         lens, B, T, H, dot_dtype, True, E=width)
                     if rate == 0.0:
-                        row["fwd_library_ms"], row["bwd_library_ms"] = \
-                            sdpa_ms(qd, kd, vd, g, lengths, H)
+                        (row["fwd_library_ms"], row["bwd_library_ms"],
+                         row["fwd_library_device_ms"],
+                         row["bwd_library_device_ms"]) = sdpa_ms(
+                            qd, kd, vd, g, lengths, H)
                     print("K2 timed", json.dumps(row), flush=True)
                 rows.append(row)
     return rows
@@ -1298,7 +1375,10 @@ def audio_against_cpu():
     return report
 
 
-K2_KERNELS =("attn_fwd_kernel", "attn_bwd_dq_kernel", "attn_bwd_dkdv_kernel")
+K2_TC_KERNELS = ("attn_fwd_tc_kernel", "attn_bwd_dq_tc_kernel",
+                 "attn_bwd_dkdv_tc_kernel")
+K2_KERNELS = ("attn_fwd_kernel", "attn_bwd_dq_kernel",
+              "attn_bwd_dkdv_kernel") + K2_TC_KERNELS
 K3_KERNELS = ("cff_rows_kernel", "cff_hidden_kernel", "wgrad_kernel",
               "sum_rows_kernel")
 K4_KERNELS = ("cffb_rows_kernel", "cffb_hidden_kernel", "wgrad_kernel",
@@ -1306,6 +1386,10 @@ K4_KERNELS = ("cffb_rows_kernel", "cffb_hidden_kernel", "wgrad_kernel",
 TRAIN_COUNTERS = {
     "attention_train_forward": (attention_core, "fwd_launches"),
     "attention_train_backward": (attention_core, "bwd_launches"),
+    "attention_train_forward_tensor_core": (attention_core,
+                                            "tc_fwd_launches"),
+    "attention_train_backward_tensor_core": (attention_core,
+                                             "tc_bwd_launches"),
     "conv_ff_train_forward": (conv_ff_train, "fwd_launches"),
     "conv_ff_train_backward": (conv_ff_train, "bwd_launches"),
     "conv_ff_train_blocked_forward": (conv_ff_train_blocked, "fwd_launches"),
@@ -1314,12 +1398,15 @@ TRAIN_COUNTERS = {
 }
 
 
-def expected_launches(conv_ff, n):
+def expected_launches(conv_ff, n, tensor_core):
     """The training counters when K2 and the conv-FF kernel ``conv_ff``
-    launched n times in each direction, and the other conv-FF kernel
-    never."""
+    launched n times in each direction, the other conv-FF kernel never,
+    and K2 all on its tensor-core instance (bf16 steps) or none (f32)."""
     ran = {"attention_train_forward", "attention_train_backward",
            f"{conv_ff}_forward", f"{conv_ff}_backward"}
+    if tensor_core:
+        ran |= {"attention_train_forward_tensor_core",
+                "attention_train_backward_tensor_core"}
     return {name: n if name in ran else 0 for name in TRAIN_COUNTERS}
 
 
@@ -1377,7 +1464,7 @@ def train(hp, conv_ff, warmup=2, steps=5):
     n_blocks = sum(hp.__dict__[m]["nb_blocks"] for m in
                    ("prosody_encoder", "phoneme_encoder", "frame_decoder"))
     expect = n_blocks * hp.accumulation_steps * steps
-    want = expected_launches(conv_ff, expect)
+    want = expected_launches(conv_ff, expect, tensor_core=True)
     print(f"training: launches {json.dumps(launches)} (expected "
           f"{json.dumps(want)}), K1 {fused_fft_block.launches} (expected 0)",
           flush=True)
@@ -1403,12 +1490,18 @@ def train(hp, conv_ff, warmup=2, steps=5):
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
     print("training", json.dumps(report), flush=True)
     it = warmup + steps + 1
-    report["profile"] = profile_kernels(
+    report["profile"] = prof = profile_kernels(
         lambda: step(batch, gen, it),
-        {"k2_ms": K2_KERNELS,
+        {"k2_ms": K2_KERNELS, "k2_tensor_core_ms": K2_TC_KERNELS,
          "k3_ms" if conv_ff == "conv_ff_train" else "k4_ms":
          K3_KERNELS if conv_ff == "conv_ff_train" else K4_KERNELS})
-    print("training profile", json.dumps(report["profile"]), flush=True)
+    if prof is not None:
+        prof["k2_share"] = prof["k2_ms"] / prof["device_busy_ms"]
+    print("training profile", json.dumps(prof), flush=True)
+    if prof is not None and not 0 < prof["k2_tensor_core_ms"] \
+            == prof["k2_ms"]:
+        raise AssertionError("K2's device time in the training step is not "
+                             "all on its tensor-core kernels")
     return report, launches
 
 
@@ -1453,7 +1546,7 @@ def train_against_cpu(make_hp, conv_ff):
                 for name, (fn, attr) in TRAIN_COUNTERS.items()}
     n_blocks = sum(hp.__dict__[m]["nb_blocks"] for m in
                    ("prosody_encoder", "phoneme_encoder", "frame_decoder"))
-    want = expected_launches(conv_ff, n_blocks)
+    want = expected_launches(conv_ff, n_blocks, tensor_core=False)
     if launches != want:
         raise AssertionError(f"card step launches {launches}, expected "
                              f"{want}")
@@ -1494,7 +1587,7 @@ def _timing(rows, direction, library):
     library call computes the same function), and the kernel at 0.1."""
     head = next(r for r in rows if r["rate"] == 0.0)
     drop = next(r for r in rows if r["rate"] > 0.0)
-    return {
+    out = {
         "ms": head[f"{direction}_ms"],
         "plain_ms": head[f"{direction}_plain_ms"],
         "bound_ms": head[f"{direction}_bound_ms"],
@@ -1505,16 +1598,26 @@ def _timing(rows, direction, library):
         "at": f"{head['shape']} B={head['B']} T={head['T']} "
               f"E={head.get('E', E)} bf16",
     }
+    if f"{direction}_device_ms" in head:  # K2: device time alone
+        out.update({
+            "device_ms": head[f"{direction}_device_ms"],
+            "library_device_ms": head.get(f"{direction}_library_device_ms"),
+            "device_ms_at_rate_0.1": drop[f"{direction}_device_ms"]})
+    return out
 
 
 def kernel_entry(name, kernel, source, replaces, launches, rows, direction,
-                 library, **extra):
+                 library, primary=None, **extra):
     """One ``kernels`` entry of a training kernel from its check rows:
     errors over every checked shape (the bf16 relative L2 errors of this
     direction's tensors beside the control's smallest), times at the
-    first timed shape, and at the others under ``also_timed``."""
+    ``primary`` timed shape (default: the first), and at the others under
+    ``also_timed``."""
     timed = [r for r in rows if f"{direction}_ms" in r]
     shapes = list(dict.fromkeys(r["shape"] for r in timed))
+    if primary is not None:
+        shapes.remove(primary)
+        shapes.insert(0, primary)
     timings = [_timing([r for r in timed if r["shape"] == sh], direction,
                        library) for sh in shapes]
     bf16 = [r for r in rows if "rel_l2" in r]
@@ -1615,6 +1718,7 @@ def main() -> int:
                               audio_requests[-1])
     audio_cpu = audio_against_cpu()
     del vocoder, audio_engines, audio_requests
+    k2_plan = check_k2_plan()
     k2 = check_k2()
     k3 = check_conv_ff("K3", K3_SHAPES, gen, 4)
     training, train_launches = train(flagship_hparams(
@@ -1669,9 +1773,17 @@ def main() -> int:
             ("conv_ff_train_blocked_backward", "K4", k4_src, 416, "bwd", k4,
              False)):
         main_run = wide_launches if kernel == "K4" else train_launches
+        extra = {}
+        if kernel == "K2":  # bf16 training: the tensor-core instance
+            tc = f"{name}_tensor_core"
+            extra = dict(primary="frame_decoder", instance="tensor_core",
+                         launches_tensor_core=train_launches[tc],
+                         launches_wide_tensor_core=wide_launches[tc],
+                         smem_bytes_by_head_dim=k2_plan)
         entries.append(kernel_entry(name, kernel, src, f"{ref}:{line}",
                                     main_run[name], rows, direction, library,
-                                    launches_wide=wide_launches[name]))
+                                    launches_wide=wide_launches[name],
+                                    **extra))
     entries[1]["training"] = training
     entries[1]["training_card_vs_cpu_f32"] = train_cpu
     entries[5]["training"] = wide

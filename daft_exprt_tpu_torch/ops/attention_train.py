@@ -26,7 +26,11 @@ returned in q's dtype.
 On a CUDA tensor the wrappers launch the kernels of
 ``csrc/attention_train.cu`` (counted in ``attention_core.fwd_launches``
 and ``.bwd_launches``) or raise; on a CPU tensor they take the plain
-versions below.
+versions below. :func:`plan_attention` says which instance of the kernels
+a call takes: bfloat16 q/k/v with bfloat16 rounding (the training path)
+the tensor-core one (also counted in ``attention_core.tc_fwd_launches``
+and ``.tc_bwd_launches``), float32, and bfloat16 with the rounding off,
+the CUDA-core one.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -44,6 +49,10 @@ from daft_exprt_tpu_torch.ops.attention_common import NEG_INF, pick_q_tile
 # (the flagship's 128, the wide ablation's 512), head dims 16, 64 and 128
 KERNEL_WIDTH_MULTIPLE = 128
 KERNEL_HEAD_DIMS = (16, 64, 128)
+# the tensor-core instance: 4 warps of 16 rows own 64 query (or key) rows
+# and stream 64-row bf16 tiles, each row padded by 8 elements
+TC_ROWS = 64
+TC_ROW_PAD = 8
 
 _MASK32 = 0xFFFFFFFF
 
@@ -177,6 +186,38 @@ def attention_plain_backward(q, k, v, g, lengths, seeds, num_heads: int,
 
 
 # ----------------------------------------------------------------------
+# Dispatch: which instance of the kernels takes a call
+# ----------------------------------------------------------------------
+class AttentionPlan(NamedTuple):
+    instance: str     # "tensor_core" or "cuda_core"
+    rows: int         # query rows (forward, dq) or key rows (dk-dv) a block owns
+    smem_bytes: int   # the largest dynamic shared memory of its launches
+
+
+def plan_attention(t: int, e: int, h: int, io_dtype, dot_dtype) -> AttentionPlan:
+    """The kernels' instance at (T, E, H) for q/k/v in ``io_dtype`` and
+    rounding at ``dot_dtype``, mirroring ``csrc/attention_train.cu``: the
+    tensor-core instance for bfloat16 with bfloat16 rounding (its dk-dv
+    launch takes the most shared memory: K and V of its 64 keys and two
+    stages of 64-query Q and G tiles in bf16, and two stages of four
+    float32 terms per query: row max, 1 / row sum, delta, dropout row
+    term), the CUDA-core one (static shared memory, 128 / (D / 16) rows a
+    block) otherwise. T does not enter: both take any T. Raises ValueError
+    outside the kernels' envelope."""
+    del t
+    if e % KERNEL_WIDTH_MULTIPLE or e % h or e // h not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"attention_core: the kernel takes E % "
+                         f"{KERNEL_WIDTH_MULTIPLE} == 0 with head dims "
+                         f"{KERNEL_HEAD_DIMS}, got E={e}, H={h}")
+    d = e // h
+    if io_dtype == torch.bfloat16 and dot_dtype == torch.bfloat16:
+        tile = TC_ROWS * (d + TC_ROW_PAD) * 2
+        return AttentionPlan("tensor_core", TC_ROWS,
+                             6 * tile + 2 * 4 * TC_ROWS * 4)
+    return AttentionPlan("cuda_core", 128 * 16 // d, 0)
+
+
+# ----------------------------------------------------------------------
 # Wrappers
 # ----------------------------------------------------------------------
 @functools.cache
@@ -194,13 +235,18 @@ def _kernels():
     return fwd, bwd
 
 
+def tc_smem_bytes(head_dim: int) -> int:
+    """The built kernel's own count of what :func:`plan_attention` mirrors
+    (0 for a head dim the tensor-core instance does not take)."""
+    fn = load_library("attention_train").attention_train_tc_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_longlong
+    return int(fn(head_dim))
+
+
 def _check_cuda(q, k, v, lengths, seeds, num_heads, dot_dtype, g=None):
+    """Raise unless the kernels take these arguments; :return: the plan."""
     B, T, E = q.shape
-    if E % KERNEL_WIDTH_MULTIPLE or E % num_heads \
-            or E // num_heads not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"attention_core: the kernel takes E % "
-                         f"{KERNEL_WIDTH_MULTIPLE} == 0 with head dims "
-                         f"{KERNEL_HEAD_DIMS}, got E={E}, H={num_heads}")
+    plan = plan_attention(T, E, num_heads, q.dtype, dot_dtype)
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"attention_core: q/k/v dtype {q.dtype}")
     for name, t, dtype in (("q", q, q.dtype), ("k", k, q.dtype),
@@ -218,6 +264,11 @@ def _check_cuda(q, k, v, lengths, seeds, num_heads, dot_dtype, g=None):
                              f"int32 (B,) on {q.device}")
     if dot_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"attention_core: dot_dtype {dot_dtype}")
+    # the tensor-core instance copies 16-byte chunks of q/k/v rows
+    if plan.instance == "tensor_core" and any(
+            t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("attention_core: q/k/v must be 16-byte aligned")
+    return plan
 
 
 def _scalars(T, E, num_heads, rate, dot_dtype, io_dtype):
@@ -232,7 +283,7 @@ def attention_forward_cuda(q, k, v, lengths, seeds, num_heads, rate,
                            dot_dtype):
     """K2's forward kernel on q/k/v in float32 or bfloat16: (out (B, T, E)
     float32, row_max, row_sum (B, H, T))."""
-    _check_cuda(q, k, v, lengths, seeds, num_heads, dot_dtype)
+    plan = _check_cuda(q, k, v, lengths, seeds, num_heads, dot_dtype)
     B, T, E = q.shape
     out = torch.empty((B, T, E), dtype=torch.float32, device=q.device)
     stats = torch.empty((2, B, num_heads, T), dtype=torch.float32,
@@ -247,16 +298,22 @@ def attention_forward_cuda(q, k, v, lengths, seeds, num_heads, rate,
     if err != 0:
         raise RuntimeError(f"attention_core: CUDA error {err} at launch")
     attention_core.fwd_launches += 1
+    attention_core.tc_fwd_launches += int(plan.instance == "tensor_core")
     return out, stats
 
 
 def attention_backward_cuda(q, k, v, g, lengths, seeds, stats, num_heads,
                             rate, dot_dtype):
-    """K2's backward kernels: (dq, dk, dv) in q's dtype; ``g`` float32."""
-    _check_cuda(q, k, v, lengths, seeds, num_heads, dot_dtype, g)
+    """K2's backward kernels: (dq, dk, dv) in q's dtype; ``g`` float32.
+    The tensor-core instance takes the cotangent rounded to bfloat16 once
+    here (the Pallas kernel rounds it per head: the same values)."""
+    plan = _check_cuda(q, k, v, lengths, seeds, num_heads, dot_dtype, g)
     B, T, E = q.shape
     if tuple(stats.shape) != (2, B, num_heads, T) or not stats.is_contiguous():
         raise ValueError("attention_core: row stats of another call")
+    tensor_core = plan.instance == "tensor_core"
+    if tensor_core:
+        g = g.to(torch.bfloat16)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     delta = torch.empty((B, num_heads, T), dtype=torch.float32,
                         device=q.device)
@@ -271,6 +328,7 @@ def attention_backward_cuda(q, k, v, g, lengths, seeds, stats, num_heads,
     if err != 0:
         raise RuntimeError(f"attention_core: CUDA error {err} at launch")
     attention_core.bwd_launches += 1
+    attention_core.tc_bwd_launches += int(tensor_core)
     return dq, dk, dv
 
 
@@ -322,3 +380,6 @@ def attention_core(q, k, v, lengths, seeds, num_heads: int, rate: float,
 
 attention_core.fwd_launches = 0
 attention_core.bwd_launches = 0
+# the launches of the above that took the tensor-core instance
+attention_core.tc_fwd_launches = 0
+attention_core.tc_bwd_launches = 0

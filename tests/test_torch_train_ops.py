@@ -8,7 +8,9 @@ Pallas kernels in interpret mode and their ``jax.vjp``, on the same numpy
 inputs, with bit-equal dropout masks at rate 0.1. Tolerances are the JAX
 kernel tests': K2 1e-5 forward and 2e-4 gradients
 (``tests/test_attention_train.py``), K3 2e-4 and 3e-4, K4 2e-5 and 3e-4
-(``tests/test_conv_ff_train.py``), float32 throughout.
+(``tests/test_conv_ff_train.py``), float32 throughout. K2's and K4's
+dispatch plans (the kernel instance and its shared memory, mirroring the
+CUDA sources) and the wrappers' refusals are checked without a card.
 """
 
 import jax
@@ -30,11 +32,12 @@ from daft_exprt_tpu_torch.ops import attention_common
 from daft_exprt_tpu_torch.ops.attention_train import (attention_core,
                                                       attention_plain,
                                                       attention_plain_backward,
-                                                      hash_bits)
+                                                      hash_bits,
+                                                      plan_attention)
 from daft_exprt_tpu_torch.ops.conv_ff_train import (
-    conv_ff_blocked_plain, conv_ff_blocked_plain_backward, conv_ff_plain,
-    conv_ff_plain_backward, conv_ff_train, conv_ff_train_blocked,
-    plan_conv_ff)
+    SMEM_BYTES, conv_ff_blocked_plain, conv_ff_blocked_plain_backward,
+    conv_ff_plain, conv_ff_plain_backward, conv_ff_train,
+    conv_ff_train_blocked, plan_conv_ff)
 from daft_exprt_tpu_torch.ops.gaussian_upsampling import normalize
 from daft_exprt_tpu_torch.ops.grad_reversal import gradient_reversal
 
@@ -340,6 +343,63 @@ def test_attention_wrapper_refuses_unsupported_widths(E_, H):
     ints = torch.zeros((2,), dtype=torch.int32)
     with pytest.raises(ValueError, match="head dims"):
         attention_forward_cuda(q, q, q, ints, ints, H, 0.0, torch.bfloat16)
+
+
+# ----------------------------------------------------------------------
+# K2's plan: which instance of the kernels takes a call (the training path
+# at bf16 on tensor cores), mirroring csrc/attention_train.cu
+# ----------------------------------------------------------------------
+K2_HEAD_DIMS = [pytest.param(128, 8, id="D16"), pytest.param(128, 2, id="D64"),
+                pytest.param(512, 4, id="D128")]
+
+
+@pytest.mark.parametrize("E_,H", K2_HEAD_DIMS)
+def test_plan_attention_bf16_rounding_takes_tensor_cores(E_, H):
+    plan = plan_attention(768, E_, H, torch.bfloat16, torch.bfloat16)
+    D = E_ // H
+    # dk-dv's tiles: K and V of 64 keys and two stages of 64-query Q and G
+    # tiles, bf16 rows padded by 8 elements, and two stages of four f32
+    # terms per query
+    assert plan == ("tensor_core", 64, 6 * 64 * (D + 8) * 2 + 2 * 4 * 64 * 4)
+
+
+@pytest.mark.parametrize("io_dtype,dot_dtype", [
+    pytest.param(torch.float32, torch.float32, id="f32"),
+    pytest.param(torch.bfloat16, torch.float32, id="bf16_rounding_off")])
+@pytest.mark.parametrize("E_,H", K2_HEAD_DIMS)
+def test_plan_attention_cuda_core_for_f32_and_unrounded_bf16(
+        io_dtype, dot_dtype, E_, H):
+    # G = D / 16 lanes share a query row, 128 threads a block
+    plan = plan_attention(768, E_, H, io_dtype, dot_dtype)
+    assert plan == ("cuda_core", 128 * 16 // (E_ // H), 0)
+
+
+# (T, E, H) of chip_smoke.py's K2_SHAPES: the flagship and wide training
+# shapes and their edges
+@pytest.mark.parametrize("T_,E_,H", [
+    pytest.param(768, 128, 8, id="prosody_encoder"),
+    pytest.param(128, 128, 2, id="phoneme_encoder"),
+    pytest.param(768, 128, 2, id="frame_decoder"),
+    pytest.param(48, 128, 8, id="edge_T48"),
+    pytest.param(37, 128, 2, id="edge_T37"),
+    pytest.param(2048, 128, 2, id="edge_T2048"),
+    pytest.param(768, 512, 4, id="wide_frame_rate"),
+    pytest.param(128, 512, 4, id="wide_symbol_rate"),
+    pytest.param(48, 512, 4, id="wide_edge_T48")])
+def test_plan_attention_fits_every_training_shape(T_, E_, H):
+    for io_dtype, dot_dtype in ((torch.bfloat16, torch.bfloat16),
+                                (torch.float32, torch.float32),
+                                (torch.bfloat16, torch.float32)):
+        plan = plan_attention(T_, E_, H, io_dtype, dot_dtype)
+        assert plan.smem_bytes <= SMEM_BYTES == 227 * 1024
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("E_,H", [pytest.param(128, 4, id="D32"),
+                                  pytest.param(192, 3, id="E192")])
+def test_plan_attention_refuses_outside_the_envelope(E_, H, dtype):
+    with pytest.raises(ValueError, match="head dims"):
+        plan_attention(768, E_, H, dtype, dtype)
 
 
 @pytest.mark.parametrize("k_dtype,g_dtype", [(torch.float32, torch.float32),
