@@ -43,7 +43,9 @@ result line):
    instance, checked by its launch counters and its shared-memory plan
    against the built kernel's; two bf16 backward runs bit-identical), and
    time every training shape at bf16 beside
-   ``scaled_dot_product_attention``; the same for the training conv-FF
+   ``scaled_dot_product_attention``; hold float32 q/k/v with bf16 dots
+   (the CUDA-core instance, which rounds k and q before the dq and dk
+   products) to the plain version; the same for the training conv-FF
    kernels (K3), with a check that two backward runs give bit-identical
    weight gradients. At bf16 a control runs the same kernels with their
    internal rounding off and must fail the relative-L2 limit;
@@ -59,13 +61,20 @@ result line):
 7. the wide-head ablation (``wide_head_hparams``: E=512, 4 heads of
    D=128, conv channels 512; K2 at E=512 is held in phase 5): hold the
    C-blocked conv-FF kernels (K4) against their plain versions at the
-   wide step's shapes and the port plan's C block (f32 max abs, bf16
-   relative L2 against a control that must fail, bit-identical weight
-   gradients over two backward runs, edge shapes: a partial tile with a
-   short row, E=256, one C block) and time them; take 2 + 5 wide steps
-   as in 6 (K2 and K4 12 x 3 per step each, K3 and K1 none) and profile
-   one; hold a small float32 wide step (E=256, 2 heads of 128, C=256) on
-   the card against the CPU;
+   wide step's shapes and the port plan's C block (f32 max abs on the
+   CUDA-core instance; bf16 on the tensor-core instance, checked by its
+   launch counters and its shared-memory plan against the built kernel's,
+   relative L2 against a control -- the CUDA-core instance with rounding
+   off -- that must fail; bit-identical weight gradients over two
+   backward runs; edge shapes: a partial tile with a short row, E=256,
+   one C block) and time them at bf16 (CUDA events, profiler device time,
+   the plain version, and the same GEMMs as staged bf16 cuBLAS matmuls on
+   shifted operands), failing past 1.0 / 3.0 ms forward / backward at the
+   wide frame-rate shape; take 2 + 5 wide steps as in 6 (K2 and K4 12 x 3
+   per step each, every K4 launch on its tensor-core instance, K3 and K1
+   none) and profile one (K4's device time all in its tensor-core
+   kernels); hold a small float32 wide step (E=256, 2 heads of 128,
+   C=256) on the card against the CPU;
 8. print ``{"kernels": [...]}``, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -171,18 +180,23 @@ def cuda_ms(fn, reps=25, warmup=3):
     return float(np.median(times))
 
 
-def device_ms(fn, reps=10):
+def device_ms(fn, reps=10, breakdown=False):
     """Device milliseconds of all the kernels one call of ``fn`` runs
     (torch.profiler over ``reps`` calls after one warm-up), without the
     host's time between launches that ``cuda_ms`` counts when the device
     waits for it; None where the profiler records no device time (it
-    missed one window on an H100: such a window is taken again once)."""
+    missed one window on an H100: such a window is taken again once).
+    With ``breakdown``: (that, [{kernel, ms, count} per call])."""
     fn()
     for _ in range(2):
         report = profile_kernels(lambda: [fn() for _ in range(reps)], {})
         if report is not None:
-            return report["device_busy_ms"] / reps
-    return None
+            ms = report["device_busy_ms"] / reps
+            if not breakdown:
+                return ms
+            return ms, [{"kernel": t["kernel"], "ms": t["ms"] / reps,
+                         "count": t["count"] / reps} for t in report["top"]]
+    return (None, None) if breakdown else None
 
 
 def k1_bound(lengths, B, T, dot_dtype):
@@ -548,6 +562,27 @@ def check_k2():
                             qd, kd, vd, g, lengths, H)
                     print("K2 timed", json.dumps(row), flush=True)
                 rows.append(row)
+        # float32 q/k/v with bf16 dots (the CUDA-core instance) rounds k and
+        # q before the dq and dk products, as the plain version and the
+        # Pallas kernel do (without those two roundings dq and dk are
+        # ~1.7e-3 off on the CPU against JAX, past the bf16 limits)
+        for rate in RATES:
+            args = (lengths, seeds, H, rate, torch.bfloat16)
+            qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+            before = tc_launches()
+            out = attention_core(qg, kg, vg, *args)
+            grads = torch.autograd.grad(out, (qg, kg, vg), g)
+            if tc_launches() != before:
+                raise AssertionError("K2 float32 inputs ran on tensor cores")
+            errs = {n: _rel_l2(a, b) for n, a, b in zip(
+                K2_ROUNDED, (out, *grads), (attention_plain(q, k, v, *args),
+                                            *attention_plain_backward(
+                                                q, k, v, g, *args)))}
+            print("K2 float32 inputs, bf16 dots", json.dumps(
+                {"shape": name, "rate": rate, "rel_l2": errs}), flush=True)
+            if not all(e <= _bf16_limit("K2", n) for n, e in errs.items()):
+                raise AssertionError(f"K2 {name} float32 inputs with bf16 "
+                                     f"dots: relative L2 {errs}")
     return rows
 
 
@@ -568,6 +603,10 @@ K4_SHAPES = [("wide_frame_rate", 16, 768, 512, 512, None, None),
              ("edge_E256", 2, 64, 256, 256, None, None),
              ("edge_single_block", 2, 64, 512, 128, 128, None)]
 CONV_FF_TIMED = ("frame_rate", "wide_frame_rate")
+# K4's tensor-core instance at the wide frame-rate shape, bf16, CUDA-event
+# ms of one call (forward, backward): a fall back onto the CUDA-core
+# instance (2.9 / 9.1 ms on an H100) fails these
+K4_MS_LIMIT = {"fwd": 1.0, "bwd": 3.0}
 # K3/K4 kernel vs plain (see _err): f32 as tests/test_conv_ff_train.py
 # (2e-4 output, 3e-4 gradients); bf16 max abs 2e-2 of max(1, |ref|) as a
 # coarse bound, and the bf16 relative L2 error (BF16_REL_TOL)
@@ -616,11 +655,68 @@ def conv_ff_params(gen, rng, E_, C_):
     return ordinary, dyadic
 
 
+def check_k4_plan():
+    """The wrapper's shared-memory plan of K4's tensor-core instance equals
+    the built kernel's own count at every width it takes."""
+    from daft_exprt_tpu_torch.ops.conv_ff_train import (plan_conv_ff_blocked,
+                                                        tc_smem_bytes)
+
+    plan = {}
+    for width in (128, 256, 384, 512):
+        mirror = plan_conv_ff_blocked(768, width, 512, 128, torch.bfloat16)
+        built = tc_smem_bytes(width)
+        if mirror.instance != "tensor_core" or mirror.smem_bytes != built:
+            raise AssertionError(f"K4 plan at E={width}: {mirror}, kernel "
+                                 f"{built}")
+        plan[width] = built
+    print("K4 tensor-core shared memory per width", json.dumps(plan),
+          flush=True)
+    return plan
+
+
+def staged_cublas_ms(x, w1k, w2k):
+    """K4's GEMMs as bf16 ``torch.matmul`` on shifted operands ([row t-1 |
+    t | t+1] concatenated, zero outside the utterance, built before the
+    timing): conv1, conv2, their data gradients dh and dx, and the weight
+    gradients dW1, dW2, each one cuBLAS call on the same shapes as the
+    kernel's (random bf16 h, da2, da1). The yardstick of the products
+    alone: no epilogues, row work or roundings. Timed only; used nowhere
+    in the port. Returns (forward ms: conv1 + conv2, backward ms: all six,
+    which the backward's recompute includes, {product: ms})."""
+    B, T, E_ = x.shape
+    C_ = w1k.shape[-1]
+    bf = torch.bfloat16
+    gen = torch.Generator().manual_seed(0)
+
+    def shifted(a):
+        z = torch.zeros_like(a[:, :1])
+        return torch.cat([torch.cat([z, a[:, :-1]], 1), a,
+                          torch.cat([a[:, 1:], z], 1)], -1).reshape(B * T, -1)
+
+    def rand(width):
+        return torch.randn((B, T, width), generator=gen).to(bf).cuda()
+
+    h, da2, da1 = rand(C_), rand(E_), rand(C_)
+    x3, h3, da2_3, da1_3 = (shifted(a) for a in (x.to(bf), h, da2, da1))
+    w1s, w2s = w1k.to(bf).reshape(3 * E_, C_), w2k.to(bf).reshape(3 * C_, E_)
+    w2rs = w2k.flip(0).transpose(1, 2).to(bf).reshape(3 * E_, C_)
+    w1rs = w1k.flip(0).transpose(1, 2).to(bf).reshape(3 * C_, E_)
+    products = {"conv1": lambda: x3 @ w1s, "conv2": lambda: h3 @ w2s,
+                "dh": lambda: da2_3 @ w2rs, "dx": lambda: da1_3 @ w1rs,
+                "dw1": lambda: x3.t() @ da1.reshape(B * T, C_),
+                "dw2": lambda: h3.t() @ da2.reshape(B * T, E_)}
+    ms = {k: cuda_ms(f) for k, f in products.items()}
+    return ms["conv1"] + ms["conv2"], sum(ms.values()), ms
+
+
 def check_conv_ff(kernel, shapes, gen, seed):
     """K3 or K4 (training conv-FF) forward and backward against their
     plain versions, f32 and bf16, rates 0 and 0.1; at bf16 the control
     with rounding off must fail; weight gradients bit-identical over two
-    backward runs; the frame-rate bf16 shape timed.
+    backward runs; the frame-rate bf16 shape timed. K4 at bf16 runs its
+    tensor-core instance (its counters move, the control's do not; the
+    wide frame-rate shape is also timed on the device alone, beside staged
+    cuBLAS matmuls, and held to K4_MS_LIMIT); K3 never does.
 
     f32 feeds conv1 dyadic values (x in k/8, |x| <= 2; W1 in k/1024,
     |W1| <= 1/16; b1 in k/8192): every conv1 sum is then exact in float32
@@ -635,6 +731,10 @@ def check_conv_ff(kernel, shapes, gen, seed):
         conv_ff_backward_cuda, conv_ff_blocked_plain,
         conv_ff_blocked_plain_backward, conv_ff_forward_cuda,
         conv_ff_train, conv_ff_train_blocked, kernel_weights, plan_conv_ff)
+
+    def tc_launches():
+        return [conv_ff_train_blocked.tc_fwd_launches,
+                conv_ff_train_blocked.tc_bwd_launches]
 
     rng = np.random.default_rng(seed)
     params = {}
@@ -675,6 +775,7 @@ def check_conv_ff(kernel, shapes, gen, seed):
                 leaves = [t.clone().requires_grad_()
                           for t in [x] + prm + [film]]
                 w1, b1, w2, b2, ls, lb = leaves[1:7]
+                before = tc_launches()
                 if cb is None:
                     out = conv_ff_train(*leaves, seeds, rate, dot_dtype)
                 else:
@@ -683,6 +784,10 @@ def check_conv_ff(kernel, shapes, gen, seed):
                 grads = torch.autograd.grad(out, leaves, g, retain_graph=True)
                 again = torch.autograd.grad(out, leaves, g)
                 torch.cuda.synchronize()
+                tc = [a - b for a, b in zip(tc_launches(), before)]
+                if tc != ([1, 2] if kernel == "K4" and bf16 else [0, 0]):
+                    raise AssertionError(f"{kernel} {name} {dot_dtype}: "
+                                         f"tensor-core launches {tc}")
                 if not all(torch.equal(a, b) for a, b in zip(grads, again)):
                     raise AssertionError(f"{kernel} {name}: two backward runs "
                                          "differ")
@@ -714,11 +819,15 @@ def check_conv_ff(kernel, shapes, gen, seed):
                          film, seeds)
                 if bf16:
                     # the control: the same kernels on the same rounded
-                    # weights, rounding off
+                    # weights, rounding off (K4: the CUDA-core instance)
+                    before = tc_launches()
                     c_out = conv_ff_forward_cuda(*kargs, rate, torch.float32,
                                                  cb)
                     c = conv_ff_backward_cuda(*kargs, g, rate, torch.float32,
                                               cb)
+                    if tc_launches() != before:
+                        raise AssertionError(f"{kernel} control ran on "
+                                             "tensor cores")
                     c_grads = (c[0], c[1].permute(2, 1, 0), c[2],
                                c[3].permute(2, 1, 0))
                     named = dict(zip(K3_GRADS, grads))
@@ -738,10 +847,31 @@ def check_conv_ff(kernel, shapes, gen, seed):
                     _bf16_verdict(kernel, row["rel_l2"],
                                   row["control_rel_l2"])
                 if name in CONV_FF_TIMED and bf16:
-                    row["fwd_ms"] = cuda_ms(lambda: conv_ff_forward_cuda(
-                        *kargs, rate, dot_dtype, cb))
-                    row["bwd_ms"] = cuda_ms(lambda: conv_ff_backward_cuda(
-                        *kargs, g, rate, dot_dtype, cb))
+                    def fwd():
+                        return conv_ff_forward_cuda(*kargs, rate, dot_dtype,
+                                                    cb)
+
+                    def bwd():
+                        return conv_ff_backward_cuda(*kargs, g, rate,
+                                                     dot_dtype, cb)
+                    row["fwd_ms"], row["bwd_ms"] = cuda_ms(fwd), cuda_ms(bwd)
+                    if kernel == "K4":
+                        (row["fwd_device_ms"],
+                         row["fwd_device_kernels"]) = device_ms(
+                            fwd, breakdown=True)
+                        (row["bwd_device_ms"],
+                         row["bwd_device_kernels"]) = device_ms(
+                            bwd, breakdown=True)
+                        if rate == 0.0:
+                            (row["fwd_staged_ms"], row["bwd_staged_ms"],
+                             row["staged_ms_by_product"]) = staged_cublas_ms(
+                                x, w1k, w2k)
+                        slow = {d: row[f"{d}_ms"] for d in K4_MS_LIMIT
+                                if not row[f"{d}_ms"] <= K4_MS_LIMIT[d]}
+                        if slow:
+                            raise AssertionError(
+                                f"K4 {name} rate {rate}: ms {slow} past the "
+                                f"limits {K4_MS_LIMIT}")
                     row["fwd_plain_ms"] = cuda_ms(plain, reps=5)
                     row["bwd_plain_ms"] = cuda_ms(plain_bwd, reps=5)
                     row["fwd_bound_ms"], row["fwd_bound_by"] = k3_bound(
@@ -1381,8 +1511,10 @@ K2_KERNELS = ("attn_fwd_kernel", "attn_bwd_dq_kernel",
               "attn_bwd_dkdv_kernel") + K2_TC_KERNELS
 K3_KERNELS = ("cff_rows_kernel", "cff_hidden_kernel", "wgrad_kernel",
               "sum_rows_kernel")
-K4_KERNELS = ("cffb_rows_kernel", "cffb_hidden_kernel", "wgrad_kernel",
-              "sum_rows_kernel")
+K4_TC_KERNELS = ("tc_conv_gemm_kernel", "tc_weight_grad_kernel",
+                 "tc_rows_fwd_kernel", "tc_rows_bwd_kernel", "sum_rows_kernel")
+K4_KERNELS = ("cffb_rows_kernel", "cffb_hidden_kernel",
+              "wgrad_kernel") + K4_TC_KERNELS
 TRAIN_COUNTERS = {
     "attention_train_forward": (attention_core, "fwd_launches"),
     "attention_train_backward": (attention_core, "bwd_launches"),
@@ -1395,18 +1527,26 @@ TRAIN_COUNTERS = {
     "conv_ff_train_blocked_forward": (conv_ff_train_blocked, "fwd_launches"),
     "conv_ff_train_blocked_backward": (conv_ff_train_blocked,
                                        "bwd_launches"),
+    "conv_ff_train_blocked_forward_tensor_core": (conv_ff_train_blocked,
+                                                  "tc_fwd_launches"),
+    "conv_ff_train_blocked_backward_tensor_core": (conv_ff_train_blocked,
+                                                   "tc_bwd_launches"),
 }
 
 
 def expected_launches(conv_ff, n, tensor_core):
     """The training counters when K2 and the conv-FF kernel ``conv_ff``
     launched n times in each direction, the other conv-FF kernel never,
-    and K2 all on its tensor-core instance (bf16 steps) or none (f32)."""
+    and K2 and K4 all on their tensor-core instances (bf16 steps) or none
+    (f32)."""
     ran = {"attention_train_forward", "attention_train_backward",
            f"{conv_ff}_forward", f"{conv_ff}_backward"}
     if tensor_core:
         ran |= {"attention_train_forward_tensor_core",
                 "attention_train_backward_tensor_core"}
+        if conv_ff == "conv_ff_train_blocked":
+            ran |= {f"{conv_ff}_forward_tensor_core",
+                    f"{conv_ff}_backward_tensor_core"}
     return {name: n if name in ran else 0 for name in TRAIN_COUNTERS}
 
 
@@ -1490,17 +1630,23 @@ def train(hp, conv_ff, warmup=2, steps=5):
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
     print("training", json.dumps(report), flush=True)
     it = warmup + steps + 1
+    groups = {"k2_ms": K2_KERNELS, "k2_tensor_core_ms": K2_TC_KERNELS}
+    if conv_ff == "conv_ff_train":
+        groups["k3_ms"] = K3_KERNELS
+    else:
+        groups.update(k4_ms=K4_KERNELS, k4_tensor_core_ms=K4_TC_KERNELS)
     report["profile"] = prof = profile_kernels(
-        lambda: step(batch, gen, it),
-        {"k2_ms": K2_KERNELS, "k2_tensor_core_ms": K2_TC_KERNELS,
-         "k3_ms" if conv_ff == "conv_ff_train" else "k4_ms":
-         K3_KERNELS if conv_ff == "conv_ff_train" else K4_KERNELS})
+        lambda: step(batch, gen, it), groups)
     if prof is not None:
         prof["k2_share"] = prof["k2_ms"] / prof["device_busy_ms"]
     print("training profile", json.dumps(prof), flush=True)
     if prof is not None and not 0 < prof["k2_tensor_core_ms"] \
             == prof["k2_ms"]:
         raise AssertionError("K2's device time in the training step is not "
+                             "all on its tensor-core kernels")
+    if prof is not None and "k4_ms" in prof \
+            and not 0 < prof["k4_tensor_core_ms"] == prof["k4_ms"]:
+        raise AssertionError("K4's device time in the training step is not "
                              "all on its tensor-core kernels")
     return report, launches
 
@@ -1598,11 +1744,15 @@ def _timing(rows, direction, library):
         "at": f"{head['shape']} B={head['B']} T={head['T']} "
               f"E={head.get('E', E)} bf16",
     }
-    if f"{direction}_device_ms" in head:  # K2: device time alone
+    if f"{direction}_device_ms" in head:  # K2, K4: device time alone
         out.update({
             "device_ms": head[f"{direction}_device_ms"],
             "library_device_ms": head.get(f"{direction}_library_device_ms"),
             "device_ms_at_rate_0.1": drop[f"{direction}_device_ms"]})
+    if f"{direction}_staged_ms" in head:  # K4: its GEMMs in cuBLAS
+        out.update(staged_ms=head[f"{direction}_staged_ms"],
+                   staged_ms_by_product=head["staged_ms_by_product"],
+                   device_kernels=head[f"{direction}_device_kernels"])
     return out
 
 
@@ -1724,6 +1874,7 @@ def main() -> int:
     training, train_launches = train(flagship_hparams(
         batch_size=16, accumulation_steps=3), "conv_ff_train")
     train_cpu = train_against_cpu(flagship_hparams, "conv_ff_train")
+    k4_plan = check_k4_plan()
     k4 = check_conv_ff("K4", K4_SHAPES, gen, 9)
     wide, wide_launches = train(wide_head_hparams(
         batch_size=16, accumulation_steps=3), "conv_ff_train_blocked")
@@ -1757,7 +1908,7 @@ def main() -> int:
               "daft_exprt_tpu/ops/attention_train.py")
     k3_src = ("daft_exprt_tpu_torch/csrc/conv_ff_train.cu",
               "daft_exprt_tpu/ops/conv_ff_train.py")
-    k4_src = ("daft_exprt_tpu_torch/csrc/conv_ff_blocked.cu",
+    k4_src = ("daft_exprt_tpu_torch/csrc/conv_ff_blocked_tc.cu",
               "daft_exprt_tpu/ops/conv_ff_train.py")
     entries = [entry]
     # launches: the flagship step's (K4: the wide step's); launches_wide:
@@ -1774,12 +1925,18 @@ def main() -> int:
              False)):
         main_run = wide_launches if kernel == "K4" else train_launches
         extra = {}
+        tc = f"{name}_tensor_core"
         if kernel == "K2":  # bf16 training: the tensor-core instance
-            tc = f"{name}_tensor_core"
             extra = dict(primary="frame_decoder", instance="tensor_core",
                          launches_tensor_core=train_launches[tc],
                          launches_wide_tensor_core=wide_launches[tc],
                          smem_bytes_by_head_dim=k2_plan)
+        if kernel == "K4":
+            extra = dict(instance="tensor_core",
+                         launches_tensor_core=wide_launches[tc],
+                         cuda_core_source="daft_exprt_tpu_torch/csrc/"
+                                          "conv_ff_blocked.cu",
+                         smem_bytes_by_width=k4_plan)
         entries.append(kernel_entry(name, kernel, src, f"{ref}:{line}",
                                     main_run[name], rows, direction, library,
                                     launches_wide=wide_launches[name],

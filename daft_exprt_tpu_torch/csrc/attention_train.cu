@@ -16,12 +16,14 @@
 //   dp_ij  = keep_ij ? (gr_i . v_j) / (1 - rate) : 0   (multiplied by 1/keep)
 //   delta_i = sum_j dp_ij p_ij
 //   ds_ij  = rnd(p_ij (dp_ij - delta_i) / sqrt(D))
-//   dq_i   = sum_j ds_ij k_j,   dk_j = sum_i ds_ij q_i
+//   dq_i   = sum_j ds_ij rnd(k_j),   dk_j = sum_i ds_ij rnd(q_i)
 //
 // rnd() rounds to bfloat16 at bf16 dot precision (identity at f32), at
 // the points where the Pallas kernels cast to their dot dtype; q/k/v
-// arrive already rounded, in the compute dtype (float32 or bfloat16),
-// and dq/dk/dv leave in it. delta is the JAX kernels' sum of dp * p
+// arrive in the compute dtype (float32 or bfloat16), and dq/dk/dv leave
+// in it. The logits take q and k as they arrive; dq and dk take k and q
+// rounded (rnd(k_j), rnd(q_i) above), as the Pallas backward casts them
+// (a no-op on bfloat16 q/k/v). delta is the JAX kernels' sum of dp * p
 // (attention_train.py:185), not FlashAttention-2's rowsum(g * out):
 // at bf16 the two differ because pd was rounded before PV.
 //
@@ -70,6 +72,7 @@
 #include <stdint.h>
 
 #include "dropout_hash.cuh"
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -339,10 +342,10 @@ attn_bwd_dq_kernel(const In* __restrict__ q, const In* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const float4 kk = kr[i];
-        acc[4 * i] = fmaf(ds, kk.x, acc[4 * i]);
-        acc[4 * i + 1] = fmaf(ds, kk.y, acc[4 * i + 1]);
-        acc[4 * i + 2] = fmaf(ds, kk.z, acc[4 * i + 2]);
-        acc[4 * i + 3] = fmaf(ds, kk.w, acc[4 * i + 3]);
+        acc[4 * i] = fmaf(ds, rnd(kk.x, bf16), acc[4 * i]);
+        acc[4 * i + 1] = fmaf(ds, rnd(kk.y, bf16), acc[4 * i + 1]);
+        acc[4 * i + 2] = fmaf(ds, rnd(kk.z, bf16), acc[4 * i + 2]);
+        acc[4 * i + 3] = fmaf(ds, rnd(kk.w, bf16), acc[4 * i + 3]);
       }
     }
   }
@@ -433,7 +436,7 @@ attn_bwd_dkdv_kernel(const In* __restrict__ q, const In* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < 16; ++i) {
         dva[i] = fmaf(pd, grow[i], dva[i]);
-        dka[i] = fmaf(ds, qrow[i], dka[i]);
+        dka[i] = fmaf(ds, rnd(qrow[i], bf16), dka[i]);
       }
     }
   }
@@ -448,7 +451,6 @@ attn_bwd_dkdv_kernel(const In* __restrict__ q, const In* __restrict__ k,
 // -------------------------------------------------------------------
 namespace tc {
 
-typedef __nv_bfloat16 bf16;
 constexpr int WARPS = 4, THREADS = 32 * WARPS;
 // Rows a block owns (16 per warp: query rows in the forward and dq, key
 // rows in dk-dv) and rows per streamed tile (keys, or queries in dk-dv).
@@ -475,93 +477,6 @@ constexpr size_t key_smem() { return 4 * tile_elems<D>() * sizeof(bf16); }
 template <int D>
 constexpr size_t dkdv_smem() {
   return 6 * tile_elems<D>() * sizeof(bf16) + 2 * QTERMS * TILE * sizeof(float);
-}
-
-__device__ __forceinline__ uint32_t saddr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 (or 4) bytes global -> shared, asynchronously; zero-filled when
-// !valid (the source is then not read).
-__device__ __forceinline__ void cp16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp4(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most one group (the tile being prefetched) is in flight.
-__device__ __forceinline__ void cp_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void ldsm(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-// c += a (16 x 16, row) * b (16 x 8, col); bf16 operands, f32 sums.
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two floats rounded to bf16 (nearest even, as rnd()), low half first.
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// The A operand of the next product from two n8 accumulator tiles of one
-// 16-column step: the m16n8 accumulator layout (row g / g + 8, columns
-// 2t, 2t + 1) is the m16k16 A layout's, split in two column halves.
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&lo)[4],
-                                         const float (&hi)[4]) {
-  a[0] = pack(lo[0], lo[1]);
-  a[1] = pack(lo[2], lo[3]);
-  a[2] = pack(hi[0], hi[1]);
-  a[3] = pack(hi[2], hi[3]);
-}
-
-// This lane's ldmatrix row address for the 16 x 16 block at (r0, c0) of a
-// tile with row stride LD. a_addr: an A operand (rows = m, columns = k),
-// or with ldsm_t a B operand whose k runs along the tile's rows; the four
-// registers are then b0, b1 of the n8 tile c0.. and b0, b1 of c0 + 8...
-// b_addr: a B operand whose n runs along the tile's rows (ldsm, no
-// transpose): b0, b1 of rows r0..r0 + 7, then of rows r0 + 8...
-template <int LD>
-__device__ __forceinline__ uint32_t a_addr(uint32_t tile, int r0, int c0, int lane) {
-  return tile + 2 * ((r0 + (lane & 15)) * LD + c0 + (lane >> 4) * 8);
-}
-
-template <int LD>
-__device__ __forceinline__ uint32_t b_addr(uint32_t tile, int r0, int c0, int lane) {
-  return tile + 2 * ((r0 + (lane & 7) + ((lane >> 4) << 3)) * LD + c0 + ((lane >> 3) & 1) * 8);
 }
 
 // Rows [r0, r0 + TILE) of head h of a (T, E) bf16 matrix into a tile;

@@ -50,7 +50,9 @@
 //      device memory, and the block's term of dx, summed in registers;
 //   3. the weight-gradient products and the reductions of the partials
 //      (conv_ff_wgrad.cuh, shared with K3).
-// The products run on CUDA-core FMAs; tensor cores are later work.
+// The products run on CUDA-core FMAs. This is K4's float32 instance (and
+// chip_smoke's bf16 control with the rounding off); bf16 dots, the
+// training path, take the tensor-core instance, conv_ff_blocked_tc.cu.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

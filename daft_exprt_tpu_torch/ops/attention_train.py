@@ -15,11 +15,13 @@ JAX package's, so forward and backward recompute identical masks and the
 port's masks equal the JAX ones. Kept probabilities are multiplied by
 ``1 / (1 - rate)``.
 
-Numerics follow the Pallas kernels: q/k/v arrive rounded to the compute
-dtype; logits, softmax and every accumulation are float32; the dropped
+Numerics follow the Pallas kernels: q/k/v arrive in the compute dtype;
+logits, softmax and every accumulation are float32; the dropped
 probabilities are rounded before PV; in the backward the cotangent is
 rounded per head, the dropped probabilities are rounded for dv, and
-``ds = p (dp - sum(dp p)) / sqrt(D)`` is rounded before dq and dk. The
+``ds = p (dp - sum(dp p)) / sqrt(D)`` is rounded before dq and dk, whose
+other factors k and q are rounded to the dot dtype too (a no-op unless
+float32 q/k/v meet bfloat16 dots). The
 row max is held constant (no gradient through it). The gradients are
 returned in q's dtype.
 
@@ -180,8 +182,8 @@ def attention_plain_backward(q, k, v, g, lengths, seeds, num_heads: int,
             dp = torch.where(keep, dp * inv_keep, 0.0)
         ds = p * (dp - (dp * p).sum(-1, keepdim=True))
         ds = (ds * scale).to(dot_dtype).float()
-        dqs.append(ds @ k_h)
-        dks.append(ds.transpose(-1, -2) @ q_h)
+        dqs.append(ds @ k_h.to(dot_dtype).float())
+        dks.append(ds.transpose(-1, -2) @ q_h.to(dot_dtype).float())
     return tuple(torch.cat(t, dim=-1) for t in (dqs, dks, dvs))
 
 

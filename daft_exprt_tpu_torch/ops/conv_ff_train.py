@@ -32,16 +32,21 @@ weights (out, in, k), vectors (n,), FiLM (B, 2E) ``[gammas | betas]``;
 the gradients come back in the same layouts. :func:`plan_conv_ff` picks
 K3 or K4 from the shapes. On a CUDA tensor the wrappers launch the
 kernels of ``csrc/conv_ff_train.cu`` (K3, counted in
-``conv_ff_train.fwd_launches`` and ``.bwd_launches``) or
-``csrc/conv_ff_blocked.cu`` (K4, ``conv_ff_train_blocked.fwd_launches``
-and ``.bwd_launches``), or raise; on a CPU tensor they take the plain
-versions below.
+``conv_ff_train.fwd_launches`` and ``.bwd_launches``) or K4's
+(``conv_ff_train_blocked.fwd_launches`` and ``.bwd_launches``), or raise;
+on a CPU tensor they take the plain versions below. K4 has two instances,
+which :func:`plan_conv_ff_blocked` names: bfloat16 dots (the training
+path) take the tensor-core one, ``csrc/conv_ff_blocked_tc.cu`` (also
+counted in ``conv_ff_train_blocked.tc_fwd_launches`` and
+``.tc_bwd_launches``), float32 dots the CUDA-core one,
+``csrc/conv_ff_blocked.cu``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -63,6 +68,16 @@ BLOCKED_MAX_WIDTH = 512
 BLOCKED_C_BLOCK = 128  # the plan's block: 4-channel groups fill 256 threads
 SMEM_BYTES = 227 * 1024
 _ROW_TILE = 32  # rows per tile (conv_ff_tile.cuh TT)
+# K4's tensor-core instance (csrc/conv_ff_tc.cuh): 128 x 128 output tiles,
+# a 3-stage ring of bf16 chunks (32 input channels of the conv operand with
+# a halo row on each side; 64 rows of the weight gradients' operands with
+# a halo row), each shared-memory row padded by 8 elements; the backward's
+# row kernel keeps 8 warps x 5 float32 partial sums of E
+TC_TILE = 128
+TC_STAGES = 3
+TC_PAD = 8
+TC_CONV_DEPTH = 32
+TC_WGRAD_ROWS = 64
 
 
 def _rnd(t, dot_dtype):
@@ -100,6 +115,39 @@ def blocked_takes(E: int, C: int, c_block: int) -> bool:
             and c_block > 0 and c_block % BLOCKED_WIDTH_MULTIPLE == 0
             and C % c_block == 0
             and blocked_smem_bytes(E, c_block) <= SMEM_BYTES)
+
+
+class ConvFFPlan(NamedTuple):
+    instance: str     # "tensor_core" or "cuda_core"
+    rows: int         # output rows a block owns
+    smem_bytes: int   # the largest dynamic shared memory of its launches
+
+
+def plan_conv_ff_blocked(t: int, e: int, c: int, c_block: int,
+                         dot_dtype) -> ConvFFPlan:
+    """K4's instance at (T, E, C) and C block for ``dot_dtype``, mirroring
+    ``csrc/conv_ff_blocked_tc.cu`` and ``csrc/conv_ff_blocked.cu``: the
+    tensor-core instance for bfloat16 dots (its largest shared memory is
+    the conv GEMM's ring: (128 + 2) x 32 operand rows and 3 x 32 x 128
+    weights a stage), the CUDA-core one for float32 (:func:`blocked_smem_bytes`).
+    T does not enter: both take any T. Raises ValueError outside K4's
+    envelope."""
+    del t
+    if not blocked_takes(e, c, c_block):
+        raise ValueError(
+            f"conv_ff_train_blocked: the kernel takes E % "
+            f"{BLOCKED_WIDTH_MULTIPLE} == 0, E <= {BLOCKED_MAX_WIDTH}, a C "
+            f"block that is a multiple of {BLOCKED_WIDTH_MULTIPLE} dividing "
+            f"C within {SMEM_BYTES} bytes of shared memory, got E={e}, "
+            f"C={c}, c_block={c_block}")
+    if dot_dtype == torch.bfloat16:
+        row = TC_TILE + TC_PAD
+        conv = ((TC_TILE + 2) * (TC_CONV_DEPTH + TC_PAD)
+                + 3 * TC_CONV_DEPTH * row)
+        wgrad = (TC_WGRAD_ROWS + 2) * row + TC_WGRAD_ROWS * row
+        return ConvFFPlan("tensor_core", TC_TILE,
+                          max(TC_STAGES * 2 * max(conv, wgrad), 8 * 5 * e * 4))
+    return ConvFFPlan("cuda_core", _ROW_TILE, blocked_smem_bytes(e, c_block))
 
 
 def plan_conv_ff(t: int, e: int, c: int, kernel: int) -> int:
@@ -257,6 +305,32 @@ def conv_ff_plain_backward(x, w1, b1, w2, b2, ln_s, ln_b, film, seeds, g,
 # Wrappers
 # ----------------------------------------------------------------------
 @functools.cache
+def _tc_kernels():
+    """The C entry points of ``csrc/conv_ff_blocked_tc.cu`` (K4's
+    tensor-core instance), built at first use: (workspace bytes, forward,
+    backward)."""
+    lib = load_library("conv_ff_blocked_tc")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    ws = lib.conv_ff_blocked_tc_workspace_bytes
+    ws.argtypes, ws.restype = [i] * 5, ctypes.c_longlong
+    fwd = lib.conv_ff_blocked_tc_forward
+    fwd.argtypes = [p] * 12 + [i] * 5 + [ctypes.c_uint32, f, p]
+    fwd.restype = i
+    bwd = lib.conv_ff_blocked_tc_backward
+    bwd.argtypes = [p] * 20 + [i] * 5 + [ctypes.c_uint32, f, p]
+    bwd.restype = i
+    return ws, fwd, bwd
+
+
+def tc_smem_bytes(e: int) -> int:
+    """The built kernel's own count of what :func:`plan_conv_ff_blocked`
+    mirrors for the tensor-core instance at width E."""
+    fn = load_library("conv_ff_blocked_tc").conv_ff_blocked_tc_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_longlong
+    return int(fn(e))
+
+
+@functools.cache
 def _kernels(blocked: bool):
     """The C entry points of ``csrc/conv_ff_train.cu`` (K3) or
     ``csrc/conv_ff_blocked.cu`` (K4), built at first use: (workspace
@@ -326,64 +400,114 @@ def _shape_args(x, C, c_block):
     return (B, T, C) if c_block is None else (B, T, E, C, c_block)
 
 
-def _counter(c_block):
-    return conv_ff_train if c_block is None else conv_ff_train_blocked
+def _tensor_core(x, C, c_block, dot_dtype):
+    return c_block is not None and plan_conv_ff_blocked(
+        x.shape[1], x.shape[-1], C, c_block, dot_dtype).instance \
+        == "tensor_core"
+
+
+def _launched(err, c_block, tensor_core, direction):
+    """Raise on a launch error; count the launch."""
+    if err != 0:
+        raise RuntimeError(f"conv_ff_train: CUDA error {err} at launch")
+    fn = conv_ff_train if c_block is None else conv_ff_train_blocked
+    setattr(fn, f"{direction}_launches",
+            getattr(fn, f"{direction}_launches") + 1)
+    if tensor_core:
+        setattr(fn, f"tc_{direction}_launches",
+                getattr(fn, f"tc_{direction}_launches") + 1)
+
+
+def _bf16(t):
+    return t.to(torch.bfloat16).contiguous()
+
+
+def _tc_scratch(x, C, backward):
+    """K4's tensor-core operands in bf16 (x, rounded by the cast; the
+    weights, which already are bf16 values) and its workspace."""
+    B, T, E = x.shape
+    nbytes = _tc_kernels()[0](B, T, E, C, int(backward))
+    if nbytes < 0:
+        raise ValueError(f"conv_ff_train_blocked: the kernel does not take "
+                         f"{tuple(x.shape)}, C={C}")
+    return _bf16(x), torch.empty(nbytes, dtype=torch.uint8, device=x.device)
 
 
 def conv_ff_forward_cuda(x, w1k, b1, w2k, b2, ln_s, ln_b, film, seeds,
                          rate, dot_dtype, c_block=None):
-    """K3's forward kernel, or K4's with ``c_block``, on kernel-layout
-    weights (see :func:`kernel_weights`)."""
-    _, _, C = _check_cuda(x, w1k, b1, w2k, b2, ln_s, ln_b, film, seeds,
+    """K3's forward kernel, or K4's with ``c_block`` (its tensor-core
+    instance at bfloat16 dots), on kernel-layout weights (see
+    :func:`kernel_weights`)."""
+    B, T, C = _check_cuda(x, w1k, b1, w2k, b2, ln_s, ln_b, film, seeds,
                           dot_dtype, c_block=c_block)
+    tensor_core = _tensor_core(x, C, c_block, dot_dtype)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _kernels(c_block is not None)[1](
-            x.data_ptr(), w1k.data_ptr(), b1.data_ptr(), w2k.data_ptr(),
-            b2.data_ptr(), ln_s.data_ptr(), ln_b.data_ptr(), film.data_ptr(),
-            seeds.data_ptr(), out.data_ptr(), *_shape_args(x, C, c_block),
-            *_dropout_args(rate), int(dot_dtype == torch.bfloat16), stream)
-    if err != 0:
-        raise RuntimeError(f"conv_ff_train: CUDA error {err} at launch")
-    _counter(c_block).fwd_launches += 1
+        if tensor_core:
+            xb, ws = _tc_scratch(x, C, False)
+            w1b, w2b = _bf16(w1k), _bf16(w2k)
+            err = _tc_kernels()[1](
+                xb.data_ptr(), x.data_ptr(), w1b.data_ptr(), b1.data_ptr(),
+                w2b.data_ptr(), b2.data_ptr(), ln_s.data_ptr(),
+                ln_b.data_ptr(), film.data_ptr(), seeds.data_ptr(),
+                ws.data_ptr(), out.data_ptr(), B, T, x.shape[-1], C,
+                *_dropout_args(rate), stream)
+        else:
+            err = _kernels(c_block is not None)[1](
+                x.data_ptr(), w1k.data_ptr(), b1.data_ptr(), w2k.data_ptr(),
+                b2.data_ptr(), ln_s.data_ptr(), ln_b.data_ptr(),
+                film.data_ptr(), seeds.data_ptr(), out.data_ptr(),
+                *_shape_args(x, C, c_block), *_dropout_args(rate),
+                int(dot_dtype == torch.bfloat16), stream)
+    _launched(err, c_block, tensor_core, "fwd")
     return out
 
 
 def conv_ff_backward_cuda(x, w1k, b1, w2k, b2, ln_s, ln_b, film, seeds, g,
                           rate, dot_dtype, c_block=None):
-    """K3's backward kernels, or K4's with ``c_block``, on kernel-layout
-    weights: float32 (dx, dw1 (3, E, C), db1, dw2 (3, C, E), db2, dln_s,
-    dln_b, dfilm)."""
+    """K3's backward kernels, or K4's with ``c_block`` (its tensor-core
+    instance at bfloat16 dots), on kernel-layout weights: float32 (dx, dw1
+    (3, E, C), db1, dw2 (3, C, E), db2, dln_s, dln_b, dfilm)."""
     B, T, C = _check_cuda(x, w1k, b1, w2k, b2, ln_s, ln_b, film, seeds,
                           dot_dtype, g, c_block)
     E = x.shape[-1]
+    tensor_core = _tensor_core(x, C, c_block, dot_dtype)
     # tap-reversed transposes for the data gradients
     w1r = w1k.flip(0).transpose(1, 2).contiguous()   # (3, C, E)
     w2r = w2k.flip(0).transpose(1, 2).contiguous()   # (3, E, C)
-    wsize, _, bwd = _kernels(c_block is not None)
-    shape = _shape_args(x, C, c_block)
-    ws_shape = shape if c_block is None else shape[:-1]  # no C block
-    ws = torch.empty(int(wsize(*ws_shape)), dtype=torch.float32,
-                     device=x.device)
     dx = torch.empty_like(x)
     dw1 = torch.empty((3, E, C), dtype=torch.float32, device=x.device)
     dw2 = torch.empty((3, C, E), dtype=torch.float32, device=x.device)
     db1 = torch.empty((C,), dtype=torch.float32, device=x.device)
     dvec = torch.empty((3, E), dtype=torch.float32, device=x.device)
     dfilm = torch.empty((B, 2 * E), dtype=torch.float32, device=x.device)
+    grads = (dx.data_ptr(), dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(),
+             dvec.data_ptr(), dfilm.data_ptr())
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = bwd(
-            x.data_ptr(), w1k.data_ptr(), b1.data_ptr(), w2k.data_ptr(),
-            b2.data_ptr(), ln_s.data_ptr(), ln_b.data_ptr(), film.data_ptr(),
-            seeds.data_ptr(), g.data_ptr(), w1r.data_ptr(), w2r.data_ptr(),
-            ws.data_ptr(), dx.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
-            dw2.data_ptr(), dvec.data_ptr(), dfilm.data_ptr(), *shape,
-            *_dropout_args(rate), int(dot_dtype == torch.bfloat16), stream)
-    if err != 0:
-        raise RuntimeError(f"conv_ff_train: CUDA error {err} at launch")
-    _counter(c_block).bwd_launches += 1
+        if tensor_core:
+            xb, ws = _tc_scratch(x, C, True)
+            w1b, w2b, w1r, w2r = (_bf16(w) for w in (w1k, w2k, w1r, w2r))
+            err = _tc_kernels()[2](
+                xb.data_ptr(), x.data_ptr(), w1b.data_ptr(), b1.data_ptr(),
+                w2b.data_ptr(), b2.data_ptr(), ln_s.data_ptr(),
+                ln_b.data_ptr(), film.data_ptr(), seeds.data_ptr(),
+                g.data_ptr(), w1r.data_ptr(), w2r.data_ptr(), ws.data_ptr(),
+                *grads, B, T, E, C, *_dropout_args(rate), stream)
+        else:
+            wsize, _, bwd = _kernels(c_block is not None)
+            shape = _shape_args(x, C, c_block)
+            ws_shape = shape if c_block is None else shape[:-1]  # no C block
+            ws = torch.empty(int(wsize(*ws_shape)), dtype=torch.float32,
+                             device=x.device)
+            err = bwd(
+                x.data_ptr(), w1k.data_ptr(), b1.data_ptr(), w2k.data_ptr(),
+                b2.data_ptr(), ln_s.data_ptr(), ln_b.data_ptr(),
+                film.data_ptr(), seeds.data_ptr(), g.data_ptr(),
+                w1r.data_ptr(), w2r.data_ptr(), ws.data_ptr(), *grads, *shape,
+                *_dropout_args(rate), int(dot_dtype == torch.bfloat16), stream)
+    _launched(err, c_block, tensor_core, "bwd")
     return dx, dw1, db1, dw2, dvec[2], dvec[0], dvec[1], dfilm
 
 
@@ -458,3 +582,6 @@ conv_ff_train.fwd_launches = 0
 conv_ff_train.bwd_launches = 0
 conv_ff_train_blocked.fwd_launches = 0
 conv_ff_train_blocked.bwd_launches = 0
+# the launches of the above that took the tensor-core instance
+conv_ff_train_blocked.tc_fwd_launches = 0
+conv_ff_train_blocked.tc_bwd_launches = 0

@@ -8,9 +8,10 @@ Pallas kernels in interpret mode and their ``jax.vjp``, on the same numpy
 inputs, with bit-equal dropout masks at rate 0.1. Tolerances are the JAX
 kernel tests': K2 1e-5 forward and 2e-4 gradients
 (``tests/test_attention_train.py``), K3 2e-4 and 3e-4, K4 2e-5 and 3e-4
-(``tests/test_conv_ff_train.py``), float32 throughout. K2's and K4's
-dispatch plans (the kernel instance and its shared memory, mirroring the
-CUDA sources) and the wrappers' refusals are checked without a card.
+(``tests/test_conv_ff_train.py``), float32; at bfloat16 dots the
+relative L2 errors stated at each test. K2's and K4's dispatch plans (the
+kernel instance and its shared memory, mirroring the CUDA sources) and the
+wrappers' refusals are checked without a card.
 """
 
 import jax
@@ -35,9 +36,9 @@ from daft_exprt_tpu_torch.ops.attention_train import (attention_core,
                                                       hash_bits,
                                                       plan_attention)
 from daft_exprt_tpu_torch.ops.conv_ff_train import (
-    SMEM_BYTES, conv_ff_blocked_plain, conv_ff_blocked_plain_backward,
-    conv_ff_plain, conv_ff_plain_backward, conv_ff_train,
-    conv_ff_train_blocked, plan_conv_ff)
+    SMEM_BYTES, blocked_smem_bytes, conv_ff_blocked_plain,
+    conv_ff_blocked_plain_backward, conv_ff_plain, conv_ff_plain_backward,
+    conv_ff_train, conv_ff_train_blocked, plan_conv_ff, plan_conv_ff_blocked)
 from daft_exprt_tpu_torch.ops.gaussian_upsampling import normalize
 from daft_exprt_tpu_torch.ops.grad_reversal import gradient_reversal
 
@@ -102,6 +103,38 @@ def test_attention_core_matches_jax(H, rate, width):
                                    atol=2e-4, err_msg=name)
 
 
+def _rel_l2(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return np.linalg.norm(got - want) / np.linalg.norm(want)
+
+
+@pytest.mark.parametrize("rate,width", [
+    pytest.param(0.0, E, id="0.0"), pytest.param(0.1, E, id="0.1"),
+    pytest.param(0.1, 256, id="E256-0.1")])
+def test_attention_core_f32_inputs_bf16_dots_match_jax(rate, width):
+    """float32 q/k/v with bfloat16 dots: the Pallas backward rounds k and q
+    before the dq and dk products, and so does the port (relative L2 5e-4
+    on out, dq, dk, dv; without those two roundings dq and dk are ~1.7e-3
+    off)."""
+    H = 2
+    q, k, v, g, lengths, seeds = _attention_inputs(20 + H, width)
+
+    def jfn(q, k, v):
+        return jax_attention(q, k, v, jnp.asarray(lengths),
+                             jnp.asarray(seeds), H, rate, jnp.bfloat16, True)
+
+    want, vjp = jax.vjp(jfn, *(jnp.asarray(a) for a in (q, k, v)))
+    want_grads = vjp(jnp.asarray(g))
+    tq, tk, tv = (_t(a, grad=True) for a in (q, k, v))
+    out = attention_core(tq, tk, tv, _t(lengths), _t(seeds), H, rate,
+                         torch.bfloat16)
+    out.backward(_t(g))
+    errs = {"out": _rel_l2(out.detach().numpy(), want), **{
+        f"d{n}": _rel_l2(t.grad.numpy(), w)
+        for n, t, w in zip("qkv", (tq, tk, tv), want_grads)}}
+    assert all(e <= 5e-4 for e in errs.values()), errs
+
+
 @pytest.mark.parametrize("H", [2, 8])
 def test_attention_plain_backward_is_autograd_of_plain_forward(H):
     # masks fixed by the seeds: the hand-written recompute backward equals
@@ -159,28 +192,48 @@ def _port_params(jparams):
     return (w1.transpose(2, 1, 0), b1, w2.transpose(2, 1, 0), b2, ls, lb)
 
 
-@pytest.mark.parametrize("rate", [0.0, 0.1])
-def test_conv_ff_train_matches_jax(rate):
+# bf16 dots: the port's plain version against the Pallas kernels in
+# interpret mode, run eagerly (no outer jax.jit: jitted XLA:CPU keeps bf16
+# intermediates in float32), relative L2 on the output and every gradient
+BF16_REL_L2 = {"K3": 1e-6, "K4": 3e-4}
+DOTS = {"float32": (torch.float32, jnp.float32),
+        "bfloat16": (torch.bfloat16, jnp.bfloat16)}
+
+
+def _check_conv_ff(kernel, out, leaves, want, want_grads, dot, tol_f):
+    got = [t.grad.numpy() for t in leaves]
+    got[1] = got[1].transpose(2, 1, 0)  # back to the JAX layouts
+    got[3] = got[3].transpose(2, 1, 0)
+    pairs = [("out", out.detach().numpy(), np.asarray(want))] + [
+        (name, a, np.asarray(w).reshape(a.shape))
+        for name, a, w in zip(GRAD_NAMES, got, want_grads)]
+    if dot == "bfloat16":
+        errs = {name: _rel_l2(a, w) for name, a, w in pairs}
+        assert all(e <= BF16_REL_L2[kernel] for e in errs.values()), errs
+        return
+    for name, a, w in pairs:
+        tol = tol_f if name == "out" else 3e-4
+        np.testing.assert_allclose(a, w, rtol=tol, atol=tol, err_msg=name)
+
+
+@pytest.mark.parametrize("rate,dot", [
+    pytest.param(0.0, "float32", id="0.0"),
+    pytest.param(0.1, "float32", id="0.1"),
+    pytest.param(0.0, "bfloat16", id="bf16-0.0"),
+    pytest.param(0.1, "bfloat16", id="bf16-0.1")])
+def test_conv_ff_train_matches_jax(rate, dot):
     jparams, x, g, film, seeds = _conv_ff_inputs(int(rate * 10))
     w1, b1, w2, b2, ls, lb = jparams
     jargs = (jnp.asarray(x), jnp.asarray(w1), jnp.asarray(b1)[None],
              jnp.asarray(w2), jnp.asarray(b2)[None], jnp.asarray(ls)[None],
              jnp.asarray(lb)[None], jnp.asarray(film)[:, None])
     want, vjp = jax.vjp(lambda *a: jax_conv_ff(*a, jnp.asarray(seeds), rate,
-                                               jnp.float32, True), *jargs)
+                                               DOTS[dot][1], True), *jargs)
     want_grads = vjp(jnp.asarray(g))
     leaves = [_t(a, grad=True) for a in (x, *_port_params(jparams), film)]
-    out = conv_ff_train(*leaves, _t(seeds), rate, torch.float32)
+    out = conv_ff_train(*leaves, _t(seeds), rate, DOTS[dot][0])
     out.backward(_t(g))
-    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want),
-                               rtol=2e-4, atol=2e-4)
-    got = [t.grad.numpy() for t in leaves]
-    got[1] = got[1].transpose(2, 1, 0)  # back to the JAX layouts
-    got[3] = got[3].transpose(2, 1, 0)
-    names = ("x", "w1", "b1", "w2", "b2", "ln_s", "ln_b", "film")
-    for name, a, w in zip(names, got, want_grads):
-        np.testing.assert_allclose(a, np.asarray(w).reshape(a.shape),
-                                   rtol=3e-4, atol=3e-4, err_msg=name)
+    _check_conv_ff("K3", out, leaves, want, want_grads, dot, 2e-4)
 
 
 def test_conv_ff_plain_backward_is_autograd_of_plain_forward():
@@ -215,33 +268,30 @@ def _blocked_inputs(seed, T_, C_, E_=128, B_=2):
     return jparams, x, g, film, np.array([11, -3], np.int32)[:B_]
 
 
-@pytest.mark.parametrize("c_block,C_,T_,rate", [(128, 256, 32, 0.1),
-                                                (128, 512, 64, 0.0),
-                                                (256, 512, 64, 0.1)])
-def test_conv_ff_blocked_matches_jax(c_block, C_, T_, rate):
+@pytest.mark.parametrize("c_block,C_,T_,rate,dot", [
+    pytest.param(128, 256, 32, 0.1, "float32", id="128-256-32-0.1"),
+    pytest.param(128, 512, 64, 0.0, "float32", id="128-512-64-0.0"),
+    pytest.param(256, 512, 64, 0.1, "float32", id="256-512-64-0.1"),
+    pytest.param(128, 256, 32, 0.1, "bfloat16", id="bf16-128-256-32-0.1"),
+    pytest.param(128, 512, 64, 0.0, "bfloat16", id="bf16-128-512-64-0.0")])
+def test_conv_ff_blocked_matches_jax(c_block, C_, T_, rate, dot):
     """The port's K4 (plain on the CPU) against the JAX blocked Pallas
-    kernels in interpret mode and their VJP: 2e-5 forward, 3e-4 gradients
-    (``tests/test_conv_ff_train.py`` blocked tolerances)."""
+    kernels in interpret mode and their VJP: at float32 2e-5 forward, 3e-4
+    gradients (``tests/test_conv_ff_train.py`` blocked tolerances); at
+    bfloat16 relative L2 3e-4."""
     jparams, x, g, film, seeds = _blocked_inputs(c_block + C_, T_, C_)
     w1, b1, w2, b2, ls, lb = jparams
     jargs = (jnp.asarray(x), jnp.asarray(w1), jnp.asarray(b1)[None],
              jnp.asarray(w2), jnp.asarray(b2)[None], jnp.asarray(ls)[None],
              jnp.asarray(lb)[None], jnp.asarray(film)[:, None])
     want, vjp = jax.vjp(lambda *a: jax_conv_ff_blocked(
-        *a, jnp.asarray(seeds), rate, c_block, jnp.float32, True), *jargs)
+        *a, jnp.asarray(seeds), rate, c_block, DOTS[dot][1], True), *jargs)
     want_grads = vjp(jnp.asarray(g))
     leaves = [_t(a, grad=True) for a in (x, *_port_params(jparams), film)]
     out = conv_ff_train_blocked(*leaves, _t(seeds), rate, c_block,
-                                torch.float32)
+                                DOTS[dot][0])
     out.backward(_t(g))
-    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want),
-                               rtol=2e-5, atol=2e-5)
-    got = [t.grad.numpy() for t in leaves]
-    got[1] = got[1].transpose(2, 1, 0)  # back to the JAX layouts
-    got[3] = got[3].transpose(2, 1, 0)
-    for name, a, w in zip(GRAD_NAMES, got, want_grads):
-        np.testing.assert_allclose(a, np.asarray(w).reshape(a.shape),
-                                   rtol=3e-4, atol=3e-4, err_msg=name)
+    _check_conv_ff("K4", out, leaves, want, want_grads, dot, 2e-5)
 
 
 def test_conv_ff_blocked_plain_backward_is_autograd_of_plain_forward():
@@ -429,6 +479,55 @@ def test_conv_ff_wrapper_refuses_unsupported_widths(E_, C):
             torch.zeros(E_), torch.zeros(E_), torch.zeros(E_),
             torch.zeros((2, 2 * E_)), torch.zeros((2,), dtype=torch.int32),
             0.0, torch.bfloat16)
+
+
+# ----------------------------------------------------------------------
+# K4's plan: which instance takes a call (the bf16 training path on tensor
+# cores), mirroring csrc/conv_ff_blocked_tc.cu and csrc/conv_ff_blocked.cu
+# ----------------------------------------------------------------------
+K4_WIDTHS = [128, 256, 384, 512]
+
+
+@pytest.mark.parametrize("E_", K4_WIDTHS)
+def test_plan_conv_ff_blocked_bf16_takes_tensor_cores(E_):
+    plan = plan_conv_ff_blocked(768, E_, 512, 128, torch.bfloat16)
+    # the conv GEMM's ring: 3 stages of (128 + 2) operand rows x 32
+    # channels and 3 taps x 32 x 128 weights, bf16 rows padded by 8; the
+    # weight gradients' ring (2 x 64 + 2 rows x 128) and the backward row
+    # kernel's 8 warps x 5 float32 sums of E are smaller
+    conv = 3 * (130 * 40 + 3 * 32 * 136) * 2
+    assert 3 * (130 * 136) * 2 < conv and 8 * 5 * E_ * 4 < conv
+    assert plan == ("tensor_core", 128, conv)
+    assert plan.smem_bytes <= SMEM_BYTES
+
+
+@pytest.mark.parametrize("E_", K4_WIDTHS)
+def test_plan_conv_ff_blocked_f32_takes_cuda_cores(E_):
+    plan = plan_conv_ff_blocked(768, E_, 512, 128, torch.float32)
+    assert plan == ("cuda_core", 32, blocked_smem_bytes(E_, 128))
+
+
+# (T, E, C, C block) of chip_smoke.py's K4_SHAPES at the port plan's block
+@pytest.mark.parametrize("T_,E_,C_,cb", [
+    pytest.param(768, 512, 512, 128, id="wide_frame_rate"),
+    pytest.param(128, 512, 512, 128, id="wide_symbol_rate"),
+    pytest.param(40, 512, 512, 128, id="edge_T40_short_row"),
+    pytest.param(64, 256, 256, 128, id="edge_E256"),
+    pytest.param(64, 512, 128, 128, id="edge_single_block")])
+def test_plan_conv_ff_blocked_fits_every_k4_shape(T_, E_, C_, cb):
+    assert plan_conv_ff(T_, E_, C_, 3) == cb
+    for dot_dtype in (torch.bfloat16, torch.float32):
+        plan = plan_conv_ff_blocked(T_, E_, C_, cb, dot_dtype)
+        assert plan.smem_bytes <= SMEM_BYTES
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("E_,C,c_block", [(1024, 512, 128), (192, 512, 128),
+                                          (512, 512, 96), (512, 384, 256)])
+def test_plan_conv_ff_blocked_refuses_outside_the_envelope(E_, C, c_block,
+                                                           dtype):
+    with pytest.raises(ValueError, match="the kernel takes"):
+        plan_conv_ff_blocked(768, E_, C, c_block, dtype)
 
 
 @pytest.mark.parametrize("E_,C,c_block", [(1024, 512, 128), (192, 512, 128),
