@@ -24,15 +24,26 @@ result line):
    the three V1 stage shapes of a B=8, bucket-512 vocode pass (and one
    unit of each), with a control (plain without its bf16 rounding) that
    must fail the relative-L2 limit, and against exact (float64) sums at
-   one stage-1 tile; time it beside the plain version
-   and the same fan as staged cuDNN convs; check edge shapes (N not a
-   multiple of the tile, N under the halo, v3's ResBlock2 fan, C=16, C=8);
-   serve 5 text-to-waveform requests through ``run_cached_to_audio`` at
-   flagship width with a seeded V1 generator (a cold style, the same
-   keys, a padding row, half new styles, an undershooting speculation
-   that re-runs at 2048), with the K1/K5 launch counters and the
+   one stage-1 tile; check its plan (``plan_mrf``: the tensor-core
+   instance, tile and shared memory) against the built kernel's
+   ``mrf_smem_bytes`` at every V1 and V3 stage, its tensor-core counter
+   on every call at C >= 32, and bit-identical output over two runs; time
+   it (CUDA events, profiler device time) beside the plain version and
+   the same fan as staged cuDNN convs, failing unless the V1 pass is
+   faster than that fan; time the two choices of its design against
+   their alternatives at each V1 stage (one float32 accumulator per conv;
+   weights read straight from L2, whose output must equal the kernel's bit
+   for bit) with their distance from exact sums; check edge shapes (N not
+   a multiple of the
+   tile, N under the halo, v3's ResBlock2 fan, C=16, C=8: the CUDA-core
+   instance); serve 5 text-to-waveform requests through
+   ``run_cached_to_audio`` at flagship width with a seeded V1 generator
+   (a cold style, the same keys, a padding row, half new styles, an
+   undershooting speculation that re-runs at 2048), with the K1/K5 launch
+   counters (every K5 launch on the tensor-core instance) and the
    prosody-encoder batch counter read around each; check that the audio
-   equals ``run_cached`` -> crop -> ``vocode_mels``; profile one request;
+   equals ``run_cached`` -> crop -> ``vocode_mels``; profile one request
+   (K5's device time all in its tensor-core kernel);
    stream one utterance through ``StreamingVocoder`` against
    ``vocode_mels``; hold a small float32 audio request on the card against
    the CPU (TF32 off);
@@ -46,15 +57,22 @@ result line):
    ``scaled_dot_product_attention``; hold float32 q/k/v with bf16 dots
    (the CUDA-core instance, which rounds k and q before the dq and dk
    products) to the plain version; the same for the training conv-FF
-   kernels (K3), with a check that two backward runs give bit-identical
-   weight gradients. At bf16 a control runs the same kernels with their
-   internal rounding off and must fail the relative-L2 limit;
+   kernels (K3; bf16 on the tensor-core instance that K4 shares, its
+   plan's shared memory checked against the built kernel's, its
+   counters on every bf16 call; the CUDA-core instance's plan against its
+   kernel's ``conv_ff_train_smem_bytes``), with a check that two backward runs
+   give bit-identical weight gradients, and the frame- and symbol-rate
+   shapes timed like K4's in 7 (failing past 0.4 / 1.2 ms forward /
+   backward at frame rate). At bf16 a control runs the same kernels with
+   their internal rounding off (the CUDA-core instance) and must fail the
+   relative-L2 limit;
 6. take training steps at the flagship width (bf16, dropout 0.1, batch
    16, accumulation 3, L=128 symbols, T=768 frames) through
    ``make_train_step``: 2 warm-up and 5 timed steps, the K2 and K3
    launch counters read around the timed ones (12 x 3 per step each, every
-   K2 launch on the tensor-core instance, K1 and K4 none); profile one
-   step (K2's device time all in its tensor-core kernels); then hold a
+   K2 and K3 launch on its tensor-core instance, K1 and K4 none); profile
+   one step (K2's and K3's device time all in their tensor-core kernels);
+   then hold a
    small float32 step (K2 on its CUDA-core instance) on the
    card against the same step on the CPU (loss, gradient norm,
    gradients);
@@ -77,6 +95,13 @@ result line):
    C=256) on the card against the CPU;
 8. print ``{"kernels": [...]}``, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --ab-train PARENT_DIR
+
+runs only the flagship training step, in a checkout of another commit
+(``PARENT_DIR``, whose ``chip_smoke.py`` has ``train``) against this one,
+alternating parent, this, this, parent twice, each in its own process:
+one ``AB`` line of step ms and device-busy ms per run.
 
 Needs CUDA: it exits with an error when ``torch.cuda.is_available()`` is
 false. It imports nothing of JAX and nothing of ``daft_exprt_tpu``.
@@ -395,12 +420,13 @@ RATES = (0.0, 0.1)
 # inputs) is off by up to half an ulp in every rounded value. Each limit
 # sits near the geometric mean of the two readings over all checked
 # shapes on an H100 (largest error, smallest control; PERF.md): K2
-# forward 9.2e-5 and 1.6e-3, backward 2.3e-4 and 3.1e-3; K3 forward
-# 1.2e-5 and 1.2e-3, backward 1.5e-4 and 2.8e-3; K4 forward 5.8e-5 and
-# 1.45e-3, backward 4.6e-4 (W1 at the short edge shape, B x T = 80 rows)
-# and 2.8e-3 (NVIDIA H100 80GB HBM3, 700 W).
+# forward 9.2e-5 and 1.6e-3, backward 2.3e-4 and 3.1e-3; K3 on its
+# tensor-core instance forward 2.4e-5 and 1.2e-3, backward 2.3e-4 (W1 at
+# T=2048) and 2.8e-3; K4 forward 5.8e-5 and 1.45e-3, backward 4.6e-4 (W1
+# at the short edge shape, B x T = 80 rows) and 2.8e-3 (NVIDIA H100 80GB
+# HBM3, 700 W).
 BF16_REL_TOL = {("K2", "fwd"): 4e-4, ("K2", "bwd"): 8e-4,
-                ("K3", "fwd"): 1.2e-4, ("K3", "bwd"): 6.5e-4,
+                ("K3", "fwd"): 1.7e-4, ("K3", "bwd"): 8e-4,
                 ("K4", "fwd"): 2.9e-4, ("K4", "bwd"): 1.1e-3}
 # the tensors each kernel's internal bf16 roundings feed; the control
 # must exceed the limit on every one of them
@@ -602,11 +628,13 @@ K4_SHAPES = [("wide_frame_rate", 16, 768, 512, 512, None, None),
              ("edge_T40_short_row", 2, 40, 512, 512, None, [40, 13]),
              ("edge_E256", 2, 64, 256, 256, None, None),
              ("edge_single_block", 2, 64, 512, 128, 128, None)]
-CONV_FF_TIMED = ("frame_rate", "wide_frame_rate")
-# K4's tensor-core instance at the wide frame-rate shape, bf16, CUDA-event
-# ms of one call (forward, backward): a fall back onto the CUDA-core
-# instance (2.9 / 9.1 ms on an H100) fails these
-K4_MS_LIMIT = {"fwd": 1.0, "bwd": 3.0}
+CONV_FF_TIMED = ("frame_rate", "symbol_rate", "wide_frame_rate")
+# the tensor-core instance at the frame-rate shape (K3: flagship, K4: wide),
+# bf16, CUDA-event ms of one call (forward, backward): a fall back onto the
+# CUDA-core instances (K3 0.91 / 3.20, K4 2.9 / 9.1 ms on an H100) fails
+# these
+MS_LIMIT = {"frame_rate": {"fwd": 0.4, "bwd": 1.2},
+            "wide_frame_rate": {"fwd": 1.0, "bwd": 3.0}}
 # K3/K4 kernel vs plain (see _err): f32 as tests/test_conv_ff_train.py
 # (2e-4 output, 3e-4 gradients); bf16 max abs 2e-2 of max(1, |ref|) as a
 # coarse bound, and the bf16 relative L2 error (BF16_REL_TOL)
@@ -674,6 +702,28 @@ def check_k4_plan():
     return plan
 
 
+def check_k3_plan():
+    """K3's plan names the tensor-core instance at bf16 and the CUDA-core
+    one at f32 at every K3 shape, each with its built kernel's own
+    shared-memory count."""
+    from daft_exprt_tpu_torch.ops.conv_ff_train import (cuda_core_smem_bytes,
+                                                        plan_conv_ff_train,
+                                                        tc_smem_bytes)
+
+    built = {}
+    for name, _, T, E_, C_, _, _ in K3_SHAPES:
+        for dtype, instance, count in (
+                (torch.bfloat16, "tensor_core", tc_smem_bytes(E_)),
+                (torch.float32, "cuda_core", cuda_core_smem_bytes(C_))):
+            mirror = plan_conv_ff_train(T, E_, C_, dtype)
+            if mirror.instance != instance or mirror.smem_bytes != count:
+                raise AssertionError(f"K3 plan at {name} {dtype}: {mirror}, "
+                                     f"kernel {count}")
+            built[instance] = count
+    print("K3 shared memory per instance", json.dumps(built), flush=True)
+    return built
+
+
 def staged_cublas_ms(x, w1k, w2k):
     """K4's GEMMs as bf16 ``torch.matmul`` on shifted operands ([row t-1 |
     t | t+1] concatenated, zero outside the utterance, built before the
@@ -713,10 +763,11 @@ def check_conv_ff(kernel, shapes, gen, seed):
     """K3 or K4 (training conv-FF) forward and backward against their
     plain versions, f32 and bf16, rates 0 and 0.1; at bf16 the control
     with rounding off must fail; weight gradients bit-identical over two
-    backward runs; the frame-rate bf16 shape timed. K4 at bf16 runs its
-    tensor-core instance (its counters move, the control's do not; the
-    wide frame-rate shape is also timed on the device alone, beside staged
-    cuBLAS matmuls, and held to K4_MS_LIMIT); K3 never does.
+    backward runs. At bf16 both run their tensor-core instance (their
+    counters move, the control's do not); the timed shapes (CONV_FF_TIMED)
+    are timed at bf16 by CUDA events, on the device alone by kernel, beside
+    the plain version and staged cuBLAS matmuls, and the frame-rate shape
+    is held to MS_LIMIT.
 
     f32 feeds conv1 dyadic values (x in k/8, |x| <= 2; W1 in k/1024,
     |W1| <= 1/16; b1 in k/8192): every conv1 sum is then exact in float32
@@ -730,11 +781,13 @@ def check_conv_ff(kernel, shapes, gen, seed):
     from daft_exprt_tpu_torch.ops.conv_ff_train import (
         conv_ff_backward_cuda, conv_ff_blocked_plain,
         conv_ff_blocked_plain_backward, conv_ff_forward_cuda,
-        conv_ff_train, conv_ff_train_blocked, kernel_weights, plan_conv_ff)
+        conv_ff_train, conv_ff_train_blocked, kernel_weights, plan_conv_ff,
+        tc_weights)
+
+    counted = conv_ff_train if kernel == "K3" else conv_ff_train_blocked
 
     def tc_launches():
-        return [conv_ff_train_blocked.tc_fwd_launches,
-                conv_ff_train_blocked.tc_bwd_launches]
+        return [counted.tc_fwd_launches, counted.tc_bwd_launches]
 
     rng = np.random.default_rng(seed)
     params = {}
@@ -785,7 +838,7 @@ def check_conv_ff(kernel, shapes, gen, seed):
                 again = torch.autograd.grad(out, leaves, g)
                 torch.cuda.synchronize()
                 tc = [a - b for a, b in zip(tc_launches(), before)]
-                if tc != ([1, 2] if kernel == "K4" and bf16 else [0, 0]):
+                if tc != ([1, 2] if bf16 else [0, 0]):
                     raise AssertionError(f"{kernel} {name} {dot_dtype}: "
                                          f"tensor-core launches {tc}")
                 if not all(torch.equal(a, b) for a, b in zip(grads, again)):
@@ -819,7 +872,7 @@ def check_conv_ff(kernel, shapes, gen, seed):
                          film, seeds)
                 if bf16:
                     # the control: the same kernels on the same rounded
-                    # weights, rounding off (K4: the CUDA-core instance)
+                    # weights, rounding off (the CUDA-core instance)
                     before = tc_launches()
                     c_out = conv_ff_forward_cuda(*kargs, rate, torch.float32,
                                                  cb)
@@ -847,31 +900,38 @@ def check_conv_ff(kernel, shapes, gen, seed):
                     _bf16_verdict(kernel, row["rel_l2"],
                                   row["control_rel_l2"])
                 if name in CONV_FF_TIMED and bf16:
+                    # the tensor-core instance on its bf16 weights, made
+                    # once as a training step makes them for its
+                    # micro-batches
+                    tw = tc_weights(w1, w2)
+                    tkargs = (x, tw.w1, vec[0], tw.w2, *kargs[4:])
+
                     def fwd():
-                        return conv_ff_forward_cuda(*kargs, rate, dot_dtype,
+                        return conv_ff_forward_cuda(*tkargs, rate, dot_dtype,
                                                     cb)
 
                     def bwd():
-                        return conv_ff_backward_cuda(*kargs, g, rate,
-                                                     dot_dtype, cb)
+                        return conv_ff_backward_cuda(*tkargs, g, rate,
+                                                     dot_dtype, cb,
+                                                     (tw.w1r, tw.w2r))
                     row["fwd_ms"], row["bwd_ms"] = cuda_ms(fwd), cuda_ms(bwd)
-                    if kernel == "K4":
-                        (row["fwd_device_ms"],
-                         row["fwd_device_kernels"]) = device_ms(
-                            fwd, breakdown=True)
-                        (row["bwd_device_ms"],
-                         row["bwd_device_kernels"]) = device_ms(
-                            bwd, breakdown=True)
-                        if rate == 0.0:
-                            (row["fwd_staged_ms"], row["bwd_staged_ms"],
-                             row["staged_ms_by_product"]) = staged_cublas_ms(
-                                x, w1k, w2k)
-                        slow = {d: row[f"{d}_ms"] for d in K4_MS_LIMIT
-                                if not row[f"{d}_ms"] <= K4_MS_LIMIT[d]}
-                        if slow:
-                            raise AssertionError(
-                                f"K4 {name} rate {rate}: ms {slow} past the "
-                                f"limits {K4_MS_LIMIT}")
+                    (row["fwd_device_ms"],
+                     row["fwd_device_kernels"]) = device_ms(
+                        fwd, breakdown=True)
+                    (row["bwd_device_ms"],
+                     row["bwd_device_kernels"]) = device_ms(
+                        bwd, breakdown=True)
+                    if rate == 0.0:
+                        (row["fwd_staged_ms"], row["bwd_staged_ms"],
+                         row["staged_ms_by_product"]) = staged_cublas_ms(
+                            x, w1k, w2k)
+                    limit = MS_LIMIT.get(name, {})
+                    slow = {d: row[f"{d}_ms"] for d in limit
+                            if not row[f"{d}_ms"] <= limit[d]}
+                    if slow:
+                        raise AssertionError(
+                            f"{kernel} {name} rate {rate}: ms {slow} past "
+                            f"the limits {limit}")
                     row["fwd_plain_ms"] = cuda_ms(plain, reps=5)
                     row["bwd_plain_ms"] = cuda_ms(plain_bwd, reps=5)
                     row["fwd_bound_ms"], row["fwd_bound_by"] = k3_bound(
@@ -893,9 +953,9 @@ def check_conv_ff(kernel, shapes, gen, seed):
 # flips travel. Each limit sits near the geometric mean of the largest
 # kernel reading and the smallest control reading (plain without rounding,
 # what a kernel that skipped its roundings computes) over the shapes
-# checked on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md): fan 3.95e-4 and
-# 1.37e-3, unit 1.33e-5 and 1.35e-3.
-K5_REL_TOL = {"fan": 7e-4, "unit": 1.2e-4}
+# checked with the tensor-core instance on an NVIDIA H100 80GB HBM3 at
+# 700 W (PERF.md): fan 3.60e-4 and 1.37e-3, unit 1.25e-5 and 1.35e-3.
+K5_REL_TOL = {"fan": 7e-4, "unit": 1.3e-4}
 V3_CONFIG = {"upsample_rates": [8, 8, 4], "upsample_kernel_sizes": [16, 16, 8],
              "upsample_initial_channel": 256, "resblock": "2",
              "resblock_kernel_sizes": [3, 5, 7],
@@ -917,18 +977,25 @@ def k5_bound(B, N, program):
 
 
 def k5_work_factor(program, C):
-    """Products K5 computes per product the fan needs: each conv computes
-    the rows its later convs of the chain read (the tile plus what is
-    left of the chain's halo), on paper from the tap program."""
-    from daft_exprt_tpu_torch.ops.mrf_vocoder import tile_rows
+    """Products K5 computes per product the fan needs, on paper from the
+    tap program and the plan's tile: each conv computes the rows its later
+    convs of the chain read (the tile plus what is left of the chain's
+    halo). On the tensor-core instance, the busiest warp's share: a conv's
+    m16 tiles go round-robin to the row groups (plan_mrf's kernel), so a
+    conv costs ceil(tiles / row groups) x row groups x 16 rows."""
+    from daft_exprt_tpu_torch.ops.mrf_vocoder import plan_mrf, tc_row_groups
 
-    tn = tile_rows(C)
+    plan = plan_mrf(C, program.halo)
+    tn, rg = plan.tile_rows, tc_row_groups(C)
     done = need = left = 0
     for k, d, _, flags, reach in program.desc.tolist():
         if flags & 1:  # a chain starts: its halo is the chain's reach
             left = reach
         left -= (k - 1) * d // 2
-        done += (tn + 2 * left) * k
+        rows = tn + 2 * left
+        if plan.instance == "tensor_core":
+            rows = -(-(-(-rows // 16)) // rg) * rg * 16
+        done += rows * k
         need += tn * k
     return done / need
 
@@ -973,19 +1040,108 @@ def mrf_exact(x, program):
     return (acc * (1.0 / len(program.chains))).transpose(1, 2)
 
 
+def check_k5_plan(generators):
+    """The wrapper's plan of K5's tensor-core instance (tile and shared
+    memory) equals the built kernel's own count at every V1 and V3 stage
+    it takes; every V1 stage takes it."""
+    from daft_exprt_tpu_torch.ops.mrf_vocoder import (kernel_smem_bytes,
+                                                      plan_mrf)
+
+    plan = {}
+    for name, gen in generators.items():
+        for stage, program in gen.mrf_programs().items():
+            C = program.w_taps.shape[1]
+            mirror = plan_mrf(C, program.halo)
+            if mirror.instance != "tensor_core":
+                if name == "v1":
+                    raise AssertionError(f"K5 plan V1 stage {stage}: {mirror}")
+                continue
+            built = kernel_smem_bytes(C, program.halo)
+            if mirror.smem_bytes != built:
+                raise AssertionError(f"K5 plan {name} stage {stage}: "
+                                     f"{mirror}, kernel {built}")
+            plan[f"{name}_stage{stage}"] = {
+                "C": C, "halo": program.halo, "tile_rows": mirror.tile_rows,
+                "smem_bytes": built, "blocks_per_sm": 232448 // built}
+    print("K5 tensor-core plan", json.dumps(plan), flush=True)
+    return plan
+
+
+K5_VARIANTS = ("shipped", "one_accumulator", "weights_from_l2")
+
+
+def k5_variants(program, B, N, rng):
+    """K5's two design choices timed against what they chose, at one V1
+    stage: one float32 accumulator for all of a conv's products (against
+    32-channel chunks summed on the tensor cores and added with a rounded
+    add), and each warp's B fragments read straight from L2 (against the
+    3-stage cp.async ring in shared memory; the same tile and shared
+    memory). Each variant's CUDA-event ms and relative L2 distance from
+    the exact sums (mrf_exact, the first 4,096 samples of one row), beside
+    plain's. The L2 variant computes the same products in the same order as
+    the shipped kernel: its output must equal it bit for bit. Timed only:
+    no path runs the variants."""
+    import ctypes
+
+    from daft_exprt_tpu_torch.ops.mrf_vocoder import mrf_plain, plan_mrf
+
+    fn = _build.load_library("mrf_vocoder_tc").mrf_tc_forward_variant
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    C = program.w_taps.shape[1]
+    plan = plan_mrf(C, program.halo)
+    taps = {"shipped": program.w_taps, "one_accumulator": program.w_taps,
+            "weights_from_l2": program.w_taps.transpose(1, 2).contiguous()}
+
+    def run(variant, inp):
+        out = torch.empty_like(inp)
+        err = fn(inp.data_ptr(), taps[variant].data_ptr(),
+                 program.biases.data_ptr(), program.desc.data_ptr(),
+                 out.data_ptr(), inp.shape[0], inp.shape[1], C,
+                 program.desc.shape[0], program.halo, plan.tile_rows,
+                 plan.smem_bytes, 1.0 / len(program.chains),
+                 K5_VARIANTS.index(variant),
+                 torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"K5 variant {variant}: CUDA error {err}")
+        return out
+
+    x = _cuda((0.5 * rng.standard_normal((B, N, C))).astype(np.float32))
+    xs = x[:1, :4096]
+    exact = mrf_exact(xs, program)
+    row = {"C": C, "B": B, "N": N, "tile_rows": plan.tile_rows,
+           "plain_exact_rel_l2": _rel_l2(mrf_plain(xs, program), exact)}
+    outs = {}
+    for variant in K5_VARIANTS:
+        outs[variant] = run(variant, x)
+        row[variant] = {
+            "ms": cuda_ms(lambda: run(variant, x)),
+            "exact_rel_l2": _rel_l2(run(variant, xs), exact)}
+    print("K5 variants", json.dumps(row), flush=True)
+    if not torch.equal(outs["weights_from_l2"], outs["shipped"]):
+        raise AssertionError(f"K5's L2 variant differs from the kernel: {row}")
+    return row
+
+
 def check_k5():
     """K5 against its plain version at the V1 stage shapes of the serving
-    batch (B=8, bucket 512; timed beside the staged cuDNN fan), one unit of
-    each V1 stage's first resblock at the same shapes, and edge shapes
-    (untimed): N not a multiple of the tile, N under the halo, v3's
-    ResBlock2 fan, C=16 and C=8. Each must be within its K5_REL_TOL of
-    plain while the control (plain without rounding) exceeds it."""
+    batch (B=8, bucket 512; timed beside the staged cuDNN fan, with the
+    profiler's device time), one unit of each V1 stage's first resblock at
+    the same shapes, and edge shapes (untimed): N not a multiple of the
+    tile, N under the halo, v3's ResBlock2 fan, C=16 and C=8. Each must be
+    within its K5_REL_TOL of plain while the control (plain without
+    rounding) exceeds it, give bit-identical output over two runs, and
+    launch the tensor-core instance at C >= 32 (the CUDA-core one at C = 8
+    and 16). The V1 pass (the three timed stages) must be faster than the
+    staged bf16 cuDNN fan."""
     from daft_exprt_tpu_torch.ops.mrf_vocoder import (build_mrf_program,
                                                       mrf_plain)
 
     v1 = HiFiGanGenerator(seed=0)
     v3 = HiFiGanGenerator(V3_CONFIG, seed=1)
     narrow = HiFiGanGenerator({"upsample_initial_channel": 64}, seed=2)
+    plan = check_k5_plan({"v1": v1, "v3": v3})
     rng = np.random.default_rng(8)
     rates = v1.cfg["upsample_rates"]
     cases = []  # (name, program, B, N, limit, generator and stage if timed)
@@ -1008,12 +1164,21 @@ def check_k5():
     for name, program, B, N, kind, timed in cases:
         C = program.w_taps.shape[1]
         x = _cuda((0.5 * rng.standard_normal((B, N, C))).astype(np.float32))
+        before = fused_mrf.tc_launches
         out = fused_mrf(x, program)
+        again = fused_mrf(x, program)
         torch.cuda.synchronize()
+        tc = fused_mrf.tc_launches - before
+        if tc != (2 if C >= 32 else 0):
+            raise AssertionError(f"K5 {name}: {tc} of 2 launches on the "
+                                 "tensor-core instance")
+        if not torch.equal(out, again):
+            raise AssertionError(f"K5 {name}: two runs differ")
         ref = mrf_plain(x, program)
         control = mrf_plain(x, program, dot_dtype=torch.float32)
         limit = K5_REL_TOL[kind]
         row = {"shape": name, "B": B, "N": N, "C": C,
+               "instance": "tensor_core" if C >= 32 else "cuda_core",
                "taps": program.w_taps.shape[0], "halo": program.halo,
                "max_abs_err": (out - ref).abs().max().item(),
                "rel_l2": _rel_l2(out, ref),
@@ -1039,13 +1204,26 @@ def check_k5():
         if timed:
             staged = staged_fan(*timed)
             row["ms"] = cuda_ms(lambda: fused_mrf(x, program))
-            row["plain_ms"] = cuda_ms(lambda: mrf_plain(x, program))
+            row["device_ms"] = device_ms(lambda: fused_mrf(x, program),
+                                         reps=5)
+            row["plain_ms"] = cuda_ms(lambda: mrf_plain(x, program), reps=5)
             row["staged_cudnn_ms"] = cuda_ms(lambda: staged(x))
             row["bound_ms"], row["bound_by"] = k5_bound(B, N, program)
             row["work_factor"] = k5_work_factor(program, C)
+            row["plan"] = plan[f"v1_stage{timed[1]}"]
             print("K5 timed", json.dumps(row), flush=True)
         rows.append(row)
-    return rows
+    timed = [r for r in rows if "ms" in r]
+    ms = sum(r["ms"] for r in timed)
+    staged = sum(r["staged_cudnn_ms"] for r in timed)
+    print(f"K5 V1 pass: {ms} ms, staged bf16 cuDNN fan {staged} ms",
+          flush=True)
+    if not ms < staged:
+        raise AssertionError(f"K5's V1 pass ({ms} ms) is not faster than the "
+                             f"staged bf16 cuDNN fan ({staged} ms)")
+    variants = [k5_variants(v1.mrf_programs()[stage], r["B"], r["N"], rng)
+                for stage, r in zip((1, 2, 3), timed)]
+    return rows, plan, variants
 
 
 def make_request(hp, rng, B, L, T_ref, dur_scale, pitch_transform):
@@ -1267,7 +1445,8 @@ def time_duration_cumsum(hp):
     return report
 
 
-K5_KERNELS = ("mrf_kernel",)
+K5_TC_KERNELS = ("mrf_tc_kernel",)
+K5_KERNELS = ("mrf_kernel",) + K5_TC_KERNELS
 # cuDNN's conv and transposed-conv kernels: names vary with the algorithm
 CUDNN_KERNELS = ("xmma", "cudnn", "implicit", "convolve", "dgrad", "fprop",
                  "winograd", "fft")
@@ -1334,31 +1513,36 @@ def serve_audio(model, gen):
         engine.films.clear()
     torch.cuda.synchronize()
     fused_fft_block.launches = fused_mrf.launches = 0
+    fused_mrf.tc_launches = 0
     rows = []
     for label, engine, pt, inputs, k, want_fb in requests:
         before = (engine.passes, engine.film_batches,
-                  fused_fft_block.launches, fused_mrf.launches)
+                  fused_fft_block.launches, fused_mrf.launches,
+                  fused_mrf.tc_launches)
         t0 = time.perf_counter()
         wavs, out_lens, overflow = engine.run_cached_to_audio(inputs, pt, k)
         latency = time.perf_counter() - t0
-        passes, fb, k1, k5 = (a - b for a, b in zip(
+        passes, fb, k1, k5, k5_tc = (a - b for a, b in zip(
             (engine.passes, engine.film_batches, fused_fft_block.launches,
-             fused_mrf.launches), before))
+             fused_mrf.launches, fused_mrf.tc_launches), before))
         samples = check_wavs(wavs, out_lens, overflow, k)
         row = {"request": label, "pitch_transform": pt,
                "speculated_bucket": engine._buckets.speculate(inputs),
                "passes": passes, "prosody_encoder_batches": fb,
                "k1_launches": k1, "k5_launches": k5,
+               "k5_tensor_core_launches": k5_tc,
                "frames": int(sum(out_lens[b] for b, key in enumerate(k)
                                  if key is not None)),
                "latency_ms": latency * 1e3,
                "samples_per_s": samples / latency,
                "x_realtime": samples / SAMPLE_RATE / latency}
         print("audio request", json.dumps(row), flush=True)
-        if fb != want_fb or k5 != 3 * passes or k1 != 8 * passes + 4 * fb:
+        if fb != want_fb or k5 != 3 * passes or k5_tc != k5 \
+                or k1 != 8 * passes + 4 * fb:
             raise AssertionError(f"audio request launches: {row}")
         rows.append(row)
-    launches = fused_mrf.launches
+    launches = {"all": fused_mrf.launches,
+                "tensor_core": fused_mrf.tc_launches}
     rerun = rows[-1]
     if rerun["passes"] != 2 or rerun["speculated_bucket"] >= hp.max_frames:
         raise AssertionError(f"undershooting speculation: {rerun}")
@@ -1399,8 +1583,11 @@ def profile_audio(engine, request):
     report = profile_kernels(
         lambda: engine.run_cached_to_audio(inputs, pt, keys),
         {"k1_ms": K1_KERNELS, "k5_ms": K5_KERNELS,
-         "cudnn_conv_ms": CUDNN_KERNELS})
+         "k5_tensor_core_ms": K5_TC_KERNELS, "cudnn_conv_ms": CUDNN_KERNELS})
     if report is not None:
+        if not 0 < report["k5_tensor_core_ms"] == report["k5_ms"]:
+            raise AssertionError("K5's device time in the audio request is "
+                                 "not all on its tensor-core kernel")
         report["rest_ms"] = report["device_busy_ms"] - report["k1_ms"] \
             - report["k5_ms"] - report["cudnn_conv_ms"]
         report["k5_share"] = report["k5_ms"] / report["device_busy_ms"]
@@ -1509,12 +1696,14 @@ K2_TC_KERNELS = ("attn_fwd_tc_kernel", "attn_bwd_dq_tc_kernel",
                  "attn_bwd_dkdv_tc_kernel")
 K2_KERNELS = ("attn_fwd_kernel", "attn_bwd_dq_kernel",
               "attn_bwd_dkdv_kernel") + K2_TC_KERNELS
-K3_KERNELS = ("cff_rows_kernel", "cff_hidden_kernel", "wgrad_kernel",
-              "sum_rows_kernel")
-K4_TC_KERNELS = ("tc_conv_gemm_kernel", "tc_weight_grad_kernel",
-                 "tc_rows_fwd_kernel", "tc_rows_bwd_kernel", "sum_rows_kernel")
+# the tensor-core instance of K3 and K4 (csrc/conv_ff_blocked_tc.cu)
+CONV_FF_TC_KERNELS = ("tc_conv_gemm_kernel", "tc_weight_grad_kernel",
+                      "tc_rows_fwd_kernel", "tc_rows_bwd_kernel",
+                      "sum_rows_kernel")
+K3_KERNELS = ("cff_rows_kernel", "cff_hidden_kernel",
+              "wgrad_kernel") + CONV_FF_TC_KERNELS
 K4_KERNELS = ("cffb_rows_kernel", "cffb_hidden_kernel",
-              "wgrad_kernel") + K4_TC_KERNELS
+              "wgrad_kernel") + CONV_FF_TC_KERNELS
 TRAIN_COUNTERS = {
     "attention_train_forward": (attention_core, "fwd_launches"),
     "attention_train_backward": (attention_core, "bwd_launches"),
@@ -1524,6 +1713,8 @@ TRAIN_COUNTERS = {
                                              "tc_bwd_launches"),
     "conv_ff_train_forward": (conv_ff_train, "fwd_launches"),
     "conv_ff_train_backward": (conv_ff_train, "bwd_launches"),
+    "conv_ff_train_forward_tensor_core": (conv_ff_train, "tc_fwd_launches"),
+    "conv_ff_train_backward_tensor_core": (conv_ff_train, "tc_bwd_launches"),
     "conv_ff_train_blocked_forward": (conv_ff_train_blocked, "fwd_launches"),
     "conv_ff_train_blocked_backward": (conv_ff_train_blocked,
                                        "bwd_launches"),
@@ -1537,16 +1728,15 @@ TRAIN_COUNTERS = {
 def expected_launches(conv_ff, n, tensor_core):
     """The training counters when K2 and the conv-FF kernel ``conv_ff``
     launched n times in each direction, the other conv-FF kernel never,
-    and K2 and K4 all on their tensor-core instances (bf16 steps) or none
-    (f32)."""
+    and K2 and the conv-FF kernel all on their tensor-core instances (bf16
+    steps) or none (f32)."""
     ran = {"attention_train_forward", "attention_train_backward",
            f"{conv_ff}_forward", f"{conv_ff}_backward"}
     if tensor_core:
         ran |= {"attention_train_forward_tensor_core",
-                "attention_train_backward_tensor_core"}
-        if conv_ff == "conv_ff_train_blocked":
-            ran |= {f"{conv_ff}_forward_tensor_core",
-                    f"{conv_ff}_backward_tensor_core"}
+                "attention_train_backward_tensor_core",
+                f"{conv_ff}_forward_tensor_core",
+                f"{conv_ff}_backward_tensor_core"}
     return {name: n if name in ran else 0 for name in TRAIN_COUNTERS}
 
 
@@ -1631,10 +1821,9 @@ def train(hp, conv_ff, warmup=2, steps=5):
     print("training", json.dumps(report), flush=True)
     it = warmup + steps + 1
     groups = {"k2_ms": K2_KERNELS, "k2_tensor_core_ms": K2_TC_KERNELS}
-    if conv_ff == "conv_ff_train":
-        groups["k3_ms"] = K3_KERNELS
-    else:
-        groups.update(k4_ms=K4_KERNELS, k4_tensor_core_ms=K4_TC_KERNELS)
+    ff = "k3" if conv_ff == "conv_ff_train" else "k4"
+    groups.update({f"{ff}_ms": K3_KERNELS if ff == "k3" else K4_KERNELS,
+                   f"{ff}_tensor_core_ms": CONV_FF_TC_KERNELS})
     report["profile"] = prof = profile_kernels(
         lambda: step(batch, gen, it), groups)
     if prof is not None:
@@ -1644,10 +1833,10 @@ def train(hp, conv_ff, warmup=2, steps=5):
             == prof["k2_ms"]:
         raise AssertionError("K2's device time in the training step is not "
                              "all on its tensor-core kernels")
-    if prof is not None and "k4_ms" in prof \
-            and not 0 < prof["k4_tensor_core_ms"] == prof["k4_ms"]:
-        raise AssertionError("K4's device time in the training step is not "
-                             "all on its tensor-core kernels")
+    if prof is not None \
+            and not 0 < prof[f"{ff}_tensor_core_ms"] == prof[f"{ff}_ms"]:
+        raise AssertionError(f"{ff.upper()}'s device time in the training "
+                             "step is not all on its tensor-core kernels")
     return report, launches
 
 
@@ -1744,12 +1933,12 @@ def _timing(rows, direction, library):
         "at": f"{head['shape']} B={head['B']} T={head['T']} "
               f"E={head.get('E', E)} bf16",
     }
-    if f"{direction}_device_ms" in head:  # K2, K4: device time alone
+    if f"{direction}_device_ms" in head:  # K2-K4: device time alone
         out.update({
             "device_ms": head[f"{direction}_device_ms"],
             "library_device_ms": head.get(f"{direction}_library_device_ms"),
             "device_ms_at_rate_0.1": drop[f"{direction}_device_ms"]})
-    if f"{direction}_staged_ms" in head:  # K4: its GEMMs in cuBLAS
+    if f"{direction}_staged_ms" in head:  # K3, K4: GEMMs in cuBLAS
         out.update(staged_ms=head[f"{direction}_staged_ms"],
                    staged_ms_by_product=head["staged_ms_by_product"],
                    device_kernels=head[f"{direction}_device_kernels"])
@@ -1791,8 +1980,8 @@ def kernel_entry(name, kernel, source, replaces, launches, rows, direction,
     }
 
 
-def k5_entry(rows, launches, audio, two_step_err, profile, stream,
-             audio_cpu):
+def k5_entry(rows, plan, design, launches, audio, two_step_err, profile,
+             stream, audio_cpu):
     """The ``kernels`` entry of K5: errors over every checked shape (fans
     and single units beside their controls), times summed over the three
     launches of one V1 vocode pass at B=8, bucket 512."""
@@ -1801,9 +1990,13 @@ def k5_entry(rows, launches, audio, two_step_err, profile, stream,
     units = [r for r in rows if r["limit"] == K5_REL_TOL["unit"]]
     return {
         "name": "fused_mrf", "route": "cuda",
-        "source": "daft_exprt_tpu_torch/csrc/mrf_vocoder.cu",
+        "source": "daft_exprt_tpu_torch/csrc/mrf_vocoder_tc.cu",
         "replaces": "daft_exprt_tpu/ops/mrf_vocoder.py:127",
-        "launches": launches,
+        "launches": launches["all"],
+        "instance": "tensor_core",
+        "launches_tensor_core": launches["tensor_core"],
+        "cuda_core_source": "daft_exprt_tpu_torch/csrc/mrf_vocoder.cu "
+                            "(C = 8, 16)",
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "rel_l2": max(r["rel_l2"] for r in fans),
         "control_rel_l2": min(r["control_rel_l2"] for r in fans),
@@ -1812,12 +2005,19 @@ def k5_entry(rows, launches, audio, two_step_err, profile, stream,
         "unit_control_rel_l2": min(r["control_rel_l2"] for r in units),
         "unit_rel_l2_limit": K5_REL_TOL["unit"],
         "ms": sum(r["ms"] for r in timed),
+        # None where the profiler missed a stage's window
+        "device_ms": None if any(r["device_ms"] is None for r in timed)
+        else sum(r["device_ms"] for r in timed),
+        "ms_by_stage": [r["ms"] for r in timed],
         "plain_ms": sum(r["plain_ms"] for r in timed),
         "bound_ms": sum(r["bound_ms"] for r in timed),
         "bound_by": "operations" if all(r["bound_by"] == "operations"
                                         for r in timed) else "bytes",
         "library_ms": None,  # no single PyTorch call computes the fan
         "staged_cudnn_ms": sum(r["staged_cudnn_ms"] for r in timed),
+        "work_factor_by_stage": [r["work_factor"] for r in timed],
+        "plan": plan,
+        "design_variants": design,
         "at": "one V1 vocode pass: stages 1-3 (C=128/64/32, N=32768/65536/"
               "131072), B=8, bucket 512, bf16 operands",
         "shapes": [{k: r[k] for k in r if k not in ("taps", "halo")}
@@ -1825,6 +2025,43 @@ def k5_entry(rows, launches, audio, two_step_err, profile, stream,
         "serving": audio, "two_step_max_abs_err": two_step_err,
         "profile": profile, "stream": stream, "card_vs_cpu_f32": audio_cpu,
     }
+
+
+AB_TRAIN = """
+import json, torch, chip_smoke as cs
+cs._build.build()
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+r, _ = cs.train(cs.flagship_hparams(batch_size=16, accumulation_steps=3),
+                "conv_ff_train", warmup=3, steps=10)
+print("AB", json.dumps({"step_ms": r["step_ms"], "device_busy_ms":
+                        r["profile"] and r["profile"]["device_busy_ms"]}))
+"""
+
+
+def ab_train(parent: str, rounds: int = 2) -> int:
+    """The flagship training step (3 warm-up and 10 timed steps of
+    ``train``, then one profiled) in a checkout of another commit against
+    this one, each in a process of its own on the same card, in the order
+    parent, this, this, parent, ``rounds`` times: one line per run with
+    its step ms and profiled device-busy ms."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    here = str(Path(__file__).resolve().parent)
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip())
+    for name, cwd in [("parent", parent), ("this", here), ("this", here),
+                      ("parent", parent)] * rounds:
+        run = subprocess.run([sys.executable, "-c", AB_TRAIN], cwd=cwd,
+                             capture_output=True, text=True, timeout=900)
+        lines = [ln for ln in run.stdout.splitlines() if ln.startswith("AB ")]
+        if run.returncode != 0 or not lines:
+            print(run.stdout[-2000:], run.stderr[-4000:], file=sys.stderr)
+            return 1
+        print(f"AB {name} {lines[-1][3:]}", flush=True)
+    return 0
 
 
 def main() -> int:
@@ -1857,7 +2094,7 @@ def main() -> int:
     profile = profile_request(engines[name], inputs, pt)
     cpu_err = check_against_cpu()
     cumsum = time_duration_cumsum(flagship_hparams())
-    k5 = check_k5()
+    k5, k5_plan, k5_design = check_k5()
     vocoder = HiFiGanGenerator(seed=0)
     audio, k5_launches, audio_engines, audio_requests = serve_audio(
         engines["speculate"].model, vocoder)
@@ -1870,6 +2107,7 @@ def main() -> int:
     del vocoder, audio_engines, audio_requests
     k2_plan = check_k2_plan()
     k2 = check_k2()
+    k3_plan = check_k3_plan()
     k3 = check_conv_ff("K3", K3_SHAPES, gen, 4)
     training, train_launches = train(flagship_hparams(
         batch_size=16, accumulation_steps=3), "conv_ff_train")
@@ -1906,10 +2144,8 @@ def main() -> int:
     }
     k2_src = ("daft_exprt_tpu_torch/csrc/attention_train.cu",
               "daft_exprt_tpu/ops/attention_train.py")
-    k3_src = ("daft_exprt_tpu_torch/csrc/conv_ff_train.cu",
-              "daft_exprt_tpu/ops/conv_ff_train.py")
-    k4_src = ("daft_exprt_tpu_torch/csrc/conv_ff_blocked_tc.cu",
-              "daft_exprt_tpu/ops/conv_ff_train.py")
+    k3_src = k4_src = ("daft_exprt_tpu_torch/csrc/conv_ff_blocked_tc.cu",
+                       "daft_exprt_tpu/ops/conv_ff_train.py")
     entries = [entry]
     # launches: the flagship step's (K4: the wide step's); launches_wide:
     # the wide step's
@@ -1931,6 +2167,12 @@ def main() -> int:
                          launches_tensor_core=train_launches[tc],
                          launches_wide_tensor_core=wide_launches[tc],
                          smem_bytes_by_head_dim=k2_plan)
+        if kernel == "K3":
+            extra = dict(instance="tensor_core",
+                         launches_tensor_core=train_launches[tc],
+                         cuda_core_source="daft_exprt_tpu_torch/csrc/"
+                                          "conv_ff_train.cu",
+                         smem_bytes_by_instance=k3_plan)
         if kernel == "K4":
             extra = dict(instance="tensor_core",
                          launches_tensor_core=wide_launches[tc],
@@ -1945,8 +2187,8 @@ def main() -> int:
     entries[1]["training_card_vs_cpu_f32"] = train_cpu
     entries[5]["training"] = wide
     entries[5]["training_card_vs_cpu_f32"] = wide_cpu
-    entries.append(k5_entry(k5, k5_launches, audio, two_step_err,
-                            audio_profile, stream, audio_cpu))
+    entries.append(k5_entry(k5, k5_plan, k5_design, k5_launches, audio,
+                            two_step_err, audio_profile, stream, audio_cpu))
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -1956,4 +2198,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--ab-train":
+        sys.exit(ab_train(sys.argv[2]))
     sys.exit(main())

@@ -1,11 +1,12 @@
-// C-blocked training conv feed-forward (K4), tensor-core instance, forward
-// and backward, for Hopper, sm_90a.
+// Training conv feed-forward, tensor-core instance of K3 and of the
+// C-blocked K4, forward and backward, for Hopper, sm_90a.
 //
 // Replaces the Pallas TPU kernels daft_exprt_tpu/ops/conv_ff_train.py
-// _fwd_kernel_blocked, _bwd_rowlocal_kernel, _bwd_blockgrads_kernel and
-// _bwd_dx_kernel (K4) on the bf16 training path; f32 dots, and bf16 with
-// the rounding off (chip_smoke's control), keep the CUDA-core instance
-// (conv_ff_blocked.cu), whose header states the function. Widths E = 128,
+// _fwd_kernel and _bwd_kernel (K3) and _fwd_kernel_blocked,
+// _bwd_rowlocal_kernel, _bwd_blockgrads_kernel and _bwd_dx_kernel (K4) on
+// the bf16 training path; f32 dots, and bf16 with the rounding off
+// (chip_smoke's control), keep the CUDA-core instances (conv_ff_train.cu,
+// conv_ff_blocked.cu), whose headers state the function. Widths E = 128,
 // 256, 384 or 512 and C % 128 == 0, any T >= 1. The hidden channels are
 // not taken in blocks here: conv2 sums over all C in the GEMM's own order,
 // which only reorders float32 sums of exact bf16 products.
@@ -32,6 +33,13 @@
 //             dx  = dr + conv1^T(rnd da1)
 //             dW1[d] = shift_d(rnd x)^T rnd(da1), dW2[d] = shift_d(h)^T
 //                   rnd(da2), summed over the rows in chunks
+//
+// Split K. The GEMMs whose N is E and K is 3C (conv2 and its recompute,
+// dx) launch only E / 128 tile columns: at K3's E = 128 one column of
+// B ceil(T / 128) tiles (96 at the flagship's T = 768, 16 at T = 128) on
+// 132 SMs. conv_splits() then splits their K over C into runs of 32-channel
+// chunks, enough to fill the card; each split writes a float32 partial
+// (the first with the bias, or dr), and sum_rows adds them in split order.
 //
 // The LayerNorm rows stay out of the GEMMs: a row of E = 512 columns spans
 // four warps of a GEMM tile, so a row kernel (a warp a row) reads a2 back,
@@ -61,6 +69,24 @@ constexpr int SMS = 132;      // an H100's streaming multiprocessors
 int conv_tiles(int T) { return (T + cftc::BM - 1) / cftc::BM; }
 int row_tiles(int T) { return (T + ROW_TILE - 1) / ROW_TILE; }
 
+// Splits of K for a conv GEMM of N columns over K input channels: the
+// count (at most K / 128, the C blocks) that least loads the busiest SM,
+// ceil(blocks x splits / SMs) / splits, the smallest on a tie; 1 where one
+// wave of tiles already fills the card.
+int conv_splits(int B, int T, int K, int N) {
+  const long long blocks = (long long)(N / cftc::BN) * conv_tiles(T) * B;
+  int best = 1;
+  double best_load = (double)((blocks + SMS - 1) / SMS);
+  for (int s = 2; s <= K / 128; ++s) {
+    const double load = (double)((blocks * s + SMS - 1) / SMS) / s;
+    if (load < best_load) {
+      best = s;
+      best_load = load;
+    }
+  }
+  return best;
+}
+
 // Row chunks of one weight-gradient product: one wave of blocks at two a
 // SM (fewer partials to write and sum), at most one chunk of cftc::WK rows
 // each.
@@ -89,9 +115,11 @@ __device__ __forceinline__ void store4(float* dst, const float* v) {
 }
 
 // -------------------------------------------------------------------
-// The conv GEMMs. Grid (N / BN, ceil(T / BM), B), cftc::THREADS threads,
-// cftc::conv_smem() bytes; the tile's rows lo .. lo + BM - 1 of batch row
-// b, rows at or past T not written.
+// The conv GEMMs. Grid (N / BN, ceil(T / BM), B x splits), cftc::THREADS
+// threads, cftc::conv_smem() bytes; the tile's rows lo .. lo + BM - 1 of
+// batch row b, rows at or past T not written. With splits > 1 (A2, DX
+// only) split s sums its run of K's chunks into out_f + s B T N, the
+// first adding the bias (A2) or dr (DX).
 // -------------------------------------------------------------------
 enum Epilogue { HIDDEN, A2, DH, DX };
 
@@ -100,19 +128,23 @@ struct EpiArgs {
   const bf16* h;      // DH: the hidden (its ReLU mask)
   const float* dr;    // DX: the LayerNorm-input gradient
   bf16* out_h;        // HIDDEN: h; DH: rnd(da1)
-  float* out_f;       // A2: a2; DX: dx
+  float* out_f;       // A2: a2; DX: dx (or their split partials)
   float* part;        // DH: db1 partials (B * conv tiles, N)
 };
 
 template <int EPI>
 __global__ void __launch_bounds__(cftc::THREADS, 2)
 tc_conv_gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W, int T, int K,
-                    int N, EpiArgs ep) {
+                    int N, int splits, EpiArgs ep) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int n0 = blockIdx.x * cftc::BN, tile = blockIdx.y, lo = tile * cftc::BM;
-  const size_t row0 = (size_t)blockIdx.z * T;
+  const int b = blockIdx.z / splits, split = blockIdx.z % splits;
+  const int chunks = K / cftc::CK;
+  const size_t row0 = (size_t)b * T;
   cftc::Acc acc;
-  cftc::conv_tile(acc, A + row0 * K, W, lo, T, K, N, n0, reinterpret_cast<bf16*>(smem));
+  cftc::conv_tile(acc, A + row0 * K, W, lo, T, K, N, n0, reinterpret_cast<bf16*>(smem),
+                  split * chunks / splits, (split + 1) * chunks / splits);
+  float* out_f = ep.out_f + (size_t)split * (gridDim.z / splits) * T * N;
   float colsum[4][2] = {};  // DH: this lane's columns over its rows
   cftc::for_pairs(acc, [&](int r, int c, int nt, float v0, float v1) {
     if (lo + r >= T) return;
@@ -122,8 +154,9 @@ tc_conv_gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W, int 
       *reinterpret_cast<uint32_t*>(ep.out_h + o) =
           tc::pack(fmaxf(v0 + bias.x, 0.f), fmaxf(v1 + bias.y, 0.f));
     } else if (EPI == A2) {
-      const float2 bias = *reinterpret_cast<const float2*>(ep.bias + n0 + c);
-      *reinterpret_cast<float2*>(ep.out_f + o) = make_float2(v0 + bias.x, v1 + bias.y);
+      const float2 bias = split ? make_float2(0.f, 0.f)
+                                : *reinterpret_cast<const float2*>(ep.bias + n0 + c);
+      *reinterpret_cast<float2*>(out_f + o) = make_float2(v0 + bias.x, v1 + bias.y);
     } else if (EPI == DH) {
       // h = rnd(relu(a1)) > 0 iff a1 > 0
       const float2 hv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(ep.h + o));
@@ -132,8 +165,9 @@ tc_conv_gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W, int 
       colsum[nt][1] += d1;
       *reinterpret_cast<uint32_t*>(ep.out_h + o) = tc::pack(d0, d1);
     } else {
-      const float2 d = *reinterpret_cast<const float2*>(ep.dr + o);
-      *reinterpret_cast<float2*>(ep.out_f + o) = make_float2(d.x + v0, d.y + v1);
+      const float2 d = split ? make_float2(0.f, 0.f)
+                             : *reinterpret_cast<const float2*>(ep.dr + o);
+      *reinterpret_cast<float2*>(out_f + o) = make_float2(d.x + v0, d.y + v1);
     }
   });
   if (EPI != DH) return;
@@ -153,7 +187,7 @@ tc_conv_gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W, int 
     }
   __syncthreads();
   if (threadIdx.x < cftc::BN)
-    ep.part[((size_t)blockIdx.z * gridDim.y + tile) * N + n0 + threadIdx.x] =
+    ep.part[((size_t)b * gridDim.y + tile) * N + n0 + threadIdx.x] =
         red[threadIdx.x] + red[cftc::BN + threadIdx.x];
 }
 
@@ -369,15 +403,17 @@ struct Carve {
 
 struct Work {
   bf16 *h, *da2c, *da1c;
-  float *a2, *dr, *pfilm, *pvec, *pdb1, *pw;
+  float *a2, *dr, *pfilm, *pvec, *pdb1, *pw, *psplit;
 };
 
-// The forward takes h and a2; the backward all of it.
+// The forward takes h, a2 and the split partials; the backward all of it.
 Work carve(Carve& cv, int B, int T, int E, int C, bool backward) {
   const size_t bt = (size_t)B * T;
+  const int splits = conv_splits(B, T, C, E);  // conv2 and dx: K = C, N = E
   Work w{};
   w.h = cv.take<bf16>(bt * C);
   w.a2 = cv.take<float>(bt * E);
+  w.psplit = splits > 1 ? cv.take<float>(splits * bt * E) : nullptr;
   if (!backward) return w;
   w.dr = cv.take<float>(bt * E);
   w.da2c = cv.take<bf16>(bt * E);
@@ -389,14 +425,20 @@ Work carve(Carve& cv, int B, int T, int E, int C, bool backward) {
   return w;
 }
 
+// One conv GEMM; A2 and DX split K over psplit (conv_splits partials of
+// B T N floats) and sum the partials into ep.out_f in split order.
 template <int EPI>
 cudaError_t conv(const bf16* A, const bf16* W, int B, int T, int K, int N, EpiArgs ep,
-                 cudaStream_t st) {
+                 float* psplit, cudaStream_t st) {
+  const int splits = EPI == A2 || EPI == DX ? conv_splits(B, T, K, N) : 1;
+  float* out = ep.out_f;
+  if (splits > 1) ep.out_f = psplit;
   cudaError_t err = allow_smem(tc_conv_gemm_kernel<EPI>, cftc::conv_smem());
   if (err != cudaSuccess) return err;
-  tc_conv_gemm_kernel<EPI><<<dim3(N / cftc::BN, conv_tiles(T), B), cftc::THREADS,
-                             cftc::conv_smem(), st>>>(A, W, T, K, N, ep);
-  return cudaGetLastError();
+  tc_conv_gemm_kernel<EPI><<<dim3(N / cftc::BN, conv_tiles(T), B * splits), cftc::THREADS,
+                             cftc::conv_smem(), st>>>(A, W, T, K, N, splits, ep);
+  if ((err = cudaGetLastError()) != cudaSuccess || splits == 1) return err;
+  return sum_rows(psplit, out, 1, splits, B * T * N, st);
 }
 
 // dW (3, M, N) = the fixed-order sum of the splits' partials.
@@ -426,11 +468,13 @@ cudaError_t forward(const Args& a, void* ws, float* out, cudaStream_t st) {
   const Work w = carve(cv, a.B, a.T, E, a.C, false);
   cudaError_t err;
   if ((err = conv<HIDDEN>(a.xb, a.w1, a.B, a.T, E, a.C,
-                          EpiArgs{a.b1, nullptr, nullptr, w.h, nullptr, nullptr}, st)) !=
+                          EpiArgs{a.b1, nullptr, nullptr, w.h, nullptr, nullptr}, w.psplit,
+                          st)) !=
       cudaSuccess)
     return err;
   if ((err = conv<A2>(w.h, a.w2, a.B, a.T, a.C, E,
-                      EpiArgs{a.b2, nullptr, nullptr, nullptr, w.a2, nullptr}, st)) !=
+                      EpiArgs{a.b2, nullptr, nullptr, nullptr, w.a2, nullptr}, w.psplit,
+                      st)) !=
       cudaSuccess)
     return err;
   const size_t rows = (size_t)a.B * a.T;
@@ -449,11 +493,13 @@ cudaError_t backward(const Args& a, const float* g, const bf16* w1r, const bf16*
   const Work w = carve(cv, B, T, E, C, true);
   cudaError_t err;
   if ((err = conv<HIDDEN>(a.xb, a.w1, B, T, E, C,
-                          EpiArgs{a.b1, nullptr, nullptr, w.h, nullptr, nullptr}, st)) !=
+                          EpiArgs{a.b1, nullptr, nullptr, w.h, nullptr, nullptr}, w.psplit,
+                          st)) !=
       cudaSuccess)
     return err;
   if ((err = conv<A2>(w.h, a.w2, B, T, C, E,
-                      EpiArgs{a.b2, nullptr, nullptr, nullptr, w.a2, nullptr}, st)) !=
+                      EpiArgs{a.b2, nullptr, nullptr, nullptr, w.a2, nullptr}, w.psplit,
+                      st)) !=
       cudaSuccess)
     return err;
   if ((err = allow_smem(tc_rows_bwd_kernel<EV>, rows_bwd_smem(E))) != cudaSuccess) return err;
@@ -463,11 +509,13 @@ cudaError_t backward(const Args& a, const float* g, const bf16* w1r, const bf16*
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   // w2r (3, E, C): w2r[d] = W2[2 - d]^T; w1r (3, C, E): w1r[d] = W1[2 - d]^T
   if ((err = conv<DH>(w.da2c, w2r, B, T, E, C,
-                      EpiArgs{nullptr, w.h, nullptr, w.da1c, nullptr, w.pdb1}, st)) !=
+                      EpiArgs{nullptr, w.h, nullptr, w.da1c, nullptr, w.pdb1}, w.psplit,
+                      st)) !=
       cudaSuccess)
     return err;
   if ((err = conv<DX>(w.da1c, w1r, B, T, C, E,
-                      EpiArgs{nullptr, nullptr, w.dr, nullptr, dx, nullptr}, st)) !=
+                      EpiArgs{nullptr, nullptr, w.dr, nullptr, dx, nullptr}, w.psplit,
+                      st)) !=
       cudaSuccess)
     return err;
   if ((err = weight_grad(a.xb, w.da1c, w.pw, dw1, B, T, E, C, st)) != cudaSuccess) return err;

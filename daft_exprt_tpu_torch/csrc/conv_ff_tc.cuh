@@ -1,13 +1,14 @@
 // Shifted-row GEMM cores on bf16 tensor cores for the k=3 SAME
-// convolutions of the training conv feed-forward (the C-blocked K4 in
-// conv_ff_blocked_tc.cu; written so that K3 and K1's conv half can take
-// them too).
+// convolutions of the training conv feed-forward (K3 and the C-blocked K4,
+// both in conv_ff_blocked_tc.cu; the ring also carries K5's weights in
+// mrf_vocoder_tc.cu).
 //
 // A k=3 SAME conv over the rows of one batch row is a GEMM with K = 3 K_in:
 // output row t takes operand rows t - 1, t and t + 1 (taps d = 0, 1, 2),
 // zero outside [0, T):
 //
 //   conv_tile:  acc[r][n] = sum_d sum_k A[lo + r + d - 1][k] W[d][k][n]
+//               (k over all of K, or one split's chunks of CK channels)
 //   wgrad_tile: acc[m][n] = sum over rows t of A[t + d - 1][m] G[t][n]
 //               (one tap d of a weight gradient, K = the rows)
 //
@@ -97,16 +98,17 @@ __device__ __forceinline__ void ring(bf16* smem, int n, Load load, Compute compu
 }
 
 // acc = sum_d sum_k A[lo - 1 + r + d][k] W[d][k][n0 + c] over this warp's
-// rows r and columns c of the tile. A: the (T, K) rows of one batch row,
-// read as zero outside [0, T); W: (3, K, N). K % CK == 0, N % BN == 0.
+// rows r and columns c of the tile, k over the chunks [c0, c1) of CK
+// channels. A: the (T, K) rows of one batch row, read as zero outside
+// [0, T); W: (3, K, N). K % CK == 0, N % BN == 0.
 __device__ __forceinline__ void conv_tile(Acc& acc, const bf16* __restrict__ A,
                                           const bf16* __restrict__ W, int lo, int T, int K,
-                                          int N, int n0, bf16* smem) {
+                                          int N, int n0, bf16* smem, int c0, int c1) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int wm = warp >> 2, wn = warp & 3;
   zero(acc);
   auto load = [&](bf16* xs, int i) {
-    const int k0 = i * CK;
+    const int k0 = (c0 + i) * CK;
     for (int j = tid; j < (BM + 2) * (CK / 8); j += THREADS) {
       const int r = j / (CK / 8), c = j % (CK / 8), t = lo - 1 + r;
       const bool valid = t >= 0 && t < T;
@@ -137,7 +139,7 @@ __device__ __forceinline__ void conv_tile(Acc& acc, const bf16* __restrict__ A,
         mma_step(acc, a, b);
       }
   };
-  ring<CONV_X + CONV_W>(smem, K / CK, load, compute);
+  ring<CONV_X + CONV_W>(smem, c1 - c0, load, compute);
 }
 
 // acc = sum over the rows (b, t) of chunks [c0, c1) of A[b][t + d - 1][m0 + m]

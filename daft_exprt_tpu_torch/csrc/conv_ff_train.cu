@@ -1,4 +1,7 @@
-// Training conv feed-forward, forward and backward, for Hopper, sm_90a.
+// Training conv feed-forward, forward and backward, for Hopper, sm_90a:
+// K3's CUDA-core instance, for float32 dots and chip_smoke's control
+// (bf16 with the rounding off); bf16 dots at C % 128 == 0, the training
+// path, take the tensor-core instance in conv_ff_blocked_tc.cu.
 //
 // Replaces the Pallas TPU kernels daft_exprt_tpu/ops/conv_ff_train.py
 // _fwd_kernel and _bwd_kernel (K3). Per batch row (T rows of width
@@ -305,6 +308,10 @@ cudaError_t allow_smem(K kernel, int C) {
 }
 
 }  // namespace
+
+// Dynamic shared memory of one tile at C conv channels: what the
+// wrapper's plan (plan_conv_ff_train) mirrors.
+extern "C" long long conv_ff_train_smem_bytes(int C) { return (long long)smem_bytes(C); }
 
 // Floats of device scratch the backward needs at (B, T, C).
 extern "C" long long conv_ff_train_workspace_floats(int B, int T, int C) {

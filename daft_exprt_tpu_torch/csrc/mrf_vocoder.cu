@@ -1,4 +1,7 @@
-// Fused multi-receptive-field (MRF) vocoder stage for Hopper, sm_90a.
+// Fused multi-receptive-field (MRF) vocoder stage for Hopper, sm_90a:
+// K5's CUDA-core instance, for the stages of C = 8 and 16 channels; C =
+// 32, 64 and 128 (every V1 stage) take the tensor-core instance in
+// mrf_vocoder_tc.cu.
 //
 // Replaces the Pallas TPU kernel daft_exprt_tpu/ops/mrf_vocoder.py
 // _make_kernel (K5). One HiFi-GAN upsample stage with input x (B, N, C)
@@ -12,25 +15,26 @@
 // outside [0, N) (per-conv SAME zero padding), and the carries are f32.
 // out = (chain_0 + chain_1 + ...) * (1 / nk).
 //
-// What bounds it on this card: the FLOPs. A V1 stage does 2 C^2 FLOPs per
-// sample for each of its 126 taps (1.1 TFLOP at B=8, N=32768, C=128)
-// against 8 C bytes of compulsory traffic per sample (x in, out, f32):
-// ~8,000 FLOP per byte, far right of the ~295 FLOP/byte ridge of the bf16
-// tensor cores. What the design does about it: it keeps the bytes
-// compulsory, so the FLOPs are all that is left. One block owns one batch
-// row's tile of TN = 8192 / C output samples. It reads the tile and the
-// widest chain's halo (60 samples a side for V1) straight from device
+// What bounds it on this card: the FLOPs, 2 C^2 per sample for each tap
+// of the fan (126 for V1's kernels 3/7/11 and dilations 1/3/5) against 8 C
+// bytes of compulsory traffic per sample (x in, out, f32): 31.5 C FLOP per
+// byte, 252 at C=8, right of the CUDA cores' ~20 FLOP per byte ridge
+// (67 TFLOP/s float32 at 3.35 TB/s). What the design does about it: it
+// keeps the bytes compulsory, so the FLOPs are all that is left. One
+// block owns one batch row's tile of TN = 8192 / C output samples. It
+// reads the tile and the widest chain's halo (60 samples a side for V1)
+// straight from device
 // memory, once per chain, and keeps every inter-conv activation of the
 // chain in shared memory: the f32 carry X, the bf16 operand A =
 // rnd(leaky(X)), and the bf16 operand A2 that conv1 hands to conv2. The
 // chains' sum over the tile stays in shared memory too, so the 18
 // inter-conv activations of a V1 stage never reach device memory. Each
 // conv's region shrinks by its padding, so a chain computes only the rows
-// its later convs read. Weights (126 taps x C^2 bf16, 4.1 MB at C=128) do
-// not fit; each tap is streamed from L2 through the read-only cache as
-// the products need it. The products run on CUDA-core FMAs (each thread
-// 8 rows x 4 output channels, two input channels per step); tensor cores
-// (mma.sync / wgmma on the bf16 operands) are the next step.
+// its later convs read. Each tap's weights are streamed from L2 through
+// the read-only cache as the products need them. The products run on
+// CUDA-core FMAs (each thread 8 rows x 4 output channels, two input
+// channels per step): at C = 8 and 16 an m16n8k16 tile would be mostly
+// padding.
 //
 // The tap program comes at run time: per conv (kernel size, dilation,
 // first tap in w_taps, flags, chain halo). w_taps is (n_taps, C_in,
@@ -287,15 +291,6 @@ extern "C" int mrf_forward(const float* x, const void* w_taps,
     case 16:
       return launch<16>(x, w_taps, biases, desc, out, B, N, n_convs, H, TN,
                         smem, inv_nk, stream);
-    case 32:
-      return launch<32>(x, w_taps, biases, desc, out, B, N, n_convs, H, TN,
-                        smem, inv_nk, stream);
-    case 64:
-      return launch<64>(x, w_taps, biases, desc, out, B, N, n_convs, H, TN,
-                        smem, inv_nk, stream);
-    case 128:
-      return launch<128>(x, w_taps, biases, desc, out, B, N, n_convs, H, TN,
-                         smem, inv_nk, stream);
     default:
       return cudaErrorInvalidValue;
   }

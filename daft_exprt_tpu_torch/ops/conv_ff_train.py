@@ -30,26 +30,28 @@ are float32.
 Parameters are taken in the port's (reference PyTorch) layouts: conv
 weights (out, in, k), vectors (n,), FiLM (B, 2E) ``[gammas | betas]``;
 the gradients come back in the same layouts. :func:`plan_conv_ff` picks
-K3 or K4 from the shapes. On a CUDA tensor the wrappers launch the
-kernels of ``csrc/conv_ff_train.cu`` (K3, counted in
-``conv_ff_train.fwd_launches`` and ``.bwd_launches``) or K4's
-(``conv_ff_train_blocked.fwd_launches`` and ``.bwd_launches``), or raise;
-on a CPU tensor they take the plain versions below. K4 has two instances,
-which :func:`plan_conv_ff_blocked` names: bfloat16 dots (the training
-path) take the tensor-core one, ``csrc/conv_ff_blocked_tc.cu`` (also
-counted in ``conv_ff_train_blocked.tc_fwd_launches`` and
-``.tc_bwd_launches``), float32 dots the CUDA-core one,
-``csrc/conv_ff_blocked.cu``.
+K3 or K4 from the shapes. On a CUDA tensor the wrappers launch K3's
+kernels (counted in ``conv_ff_train.fwd_launches`` and ``.bwd_launches``)
+or K4's (``conv_ff_train_blocked.fwd_launches`` and ``.bwd_launches``),
+or raise; on a CPU tensor they take the plain versions below. Each has
+two instances, which :func:`plan_conv_ff_train` and
+:func:`plan_conv_ff_blocked` name: bfloat16 dots (the training path) take
+the tensor-core one, ``csrc/conv_ff_blocked_tc.cu`` for both (also
+counted in ``tc_fwd_launches`` and ``tc_bwd_launches`` on the same
+functions), float32 dots the CUDA-core ones, ``csrc/conv_ff_train.cu``
+(K3) and ``csrc/conv_ff_blocked.cu`` (K4).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import weakref
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.weak import WeakIdKeyDictionary
 
 from daft_exprt_tpu_torch.ops._build import load_library
 from daft_exprt_tpu_torch.ops.attention_train import (dropout_threshold,
@@ -68,7 +70,9 @@ BLOCKED_MAX_WIDTH = 512
 BLOCKED_C_BLOCK = 128  # the plan's block: 4-channel groups fill 256 threads
 SMEM_BYTES = 227 * 1024
 _ROW_TILE = 32  # rows per tile (conv_ff_tile.cuh TT)
-# K4's tensor-core instance (csrc/conv_ff_tc.cuh): 128 x 128 output tiles,
+_K3_WEIGHT_SLICE = 16  # conv_ff_tile.cuh KC2
+# The tensor-core instance of K3 and K4 (csrc/conv_ff_blocked_tc.cu on the
+# GEMM cores of csrc/conv_ff_tc.cuh): 128 x 128 output tiles,
 # a 3-stage ring of bf16 chunks (32 input channels of the conv operand with
 # a halo row on each side; 64 rows of the weight gradients' operands with
 # a halo row), each shared-memory row padded by 8 elements; the backward's
@@ -89,6 +93,43 @@ def kernel_weights(w1, w2, dot_dtype):
     rounded to the dot dtype, as float32: (w1 (3, E, C), w2 (3, C, E))."""
     return (_rnd(w1.permute(2, 1, 0), dot_dtype).contiguous(),
             _rnd(w2.permute(2, 1, 0), dot_dtype).contiguous())
+
+
+class TCWeights(NamedTuple):
+    """The tensor-core instance's bfloat16 weights: w1 (3, E, C) and w2
+    (3, C, E) as :func:`kernel_weights` lays them out, and the tap-reversed
+    transposes the data gradients take, w1r (3, C, E) with w1r[d] =
+    w1[2 - d]^T and w2r (3, E, C)."""
+    w1: torch.Tensor
+    w2: torch.Tensor
+    w1r: torch.Tensor
+    w2r: torch.Tensor
+
+
+# w1 -> (versions and addresses of w1 and w2, w2, TCWeights), while w1 lives
+_TC_WEIGHTS = WeakIdKeyDictionary()
+
+
+def tc_weights(w1, w2) -> TCWeights:
+    """:class:`TCWeights` from reference conv weights (out, in, 3), each one
+    cast-copy. They are kept while ``w1`` lives and made again only when
+    either weight is replaced or changes in place (which moves its version
+    counter), so the micro-batches of an optimizer step, forward and
+    backward, share one set."""
+    key = (w1._version, w2._version, w1.data_ptr(), w2.data_ptr())
+    kept = _TC_WEIGHTS.get(w1)
+    if kept is not None and kept[0] == key and kept[1]() is w2:
+        return kept[2]
+
+    def cast(w):
+        return w.detach().to(torch.bfloat16,
+                             memory_format=torch.contiguous_format)
+
+    made = TCWeights(cast(w1.permute(2, 1, 0)), cast(w2.permute(2, 1, 0)),
+                     cast(w1.flip(2).permute(2, 0, 1)),
+                     cast(w2.flip(2).permute(2, 0, 1)))
+    _TC_WEIGHTS[w1] = (key, weakref.ref(w2), made)
+    return made
 
 
 # ----------------------------------------------------------------------
@@ -123,6 +164,40 @@ class ConvFFPlan(NamedTuple):
     smem_bytes: int   # the largest dynamic shared memory of its launches
 
 
+def _tc_plan(e: int) -> ConvFFPlan:
+    """The tensor-core instance at width E: its largest shared memory is
+    the conv GEMM's ring ((128 + 2) x 32 operand rows and 3 x 32 x 128
+    weights a stage) or the backward row kernel's 8 x 5 partial rows of E.
+    T and C do not enter."""
+    row = TC_TILE + TC_PAD
+    conv = (TC_TILE + 2) * (TC_CONV_DEPTH + TC_PAD) + 3 * TC_CONV_DEPTH * row
+    wgrad = (TC_WGRAD_ROWS + 2) * row + TC_WGRAD_ROWS * row
+    return ConvFFPlan("tensor_core", TC_TILE,
+                      max(TC_STAGES * 2 * max(conv, wgrad), 8 * 5 * e * 4))
+
+
+def plan_conv_ff_train(t: int, e: int, c: int, dot_dtype) -> ConvFFPlan:
+    """K3's instance at (T, E, C) for ``dot_dtype``, mirroring
+    ``csrc/conv_ff_blocked_tc.cu`` and ``csrc/conv_ff_train.cu``: the
+    tensor-core instance for bfloat16 dots at C % 128 == 0 (K4's GEMMs with
+    one C block; at E = 128 its conv2 and dx GEMMs split K over C to fill
+    the card), the CUDA-core one otherwise (a 32-row tile: the (32 + 4) x
+    E input, the (32 + 2) x C hidden and a 3 x 16 x E weight slice in
+    float32). T does not enter the plan. Raises ValueError outside K3's
+    envelope (:func:`k3_takes`)."""
+    del t
+    if not k3_takes(e, c):
+        raise ValueError(
+            f"conv_ff_train: the kernel takes E={KERNEL_WIDTH}, C % "
+            f"{KERNEL_CHANNEL_MULTIPLE} == 0, C <= {KERNEL_MAX_CHANNELS}, "
+            f"got E={e}, C={c}")
+    if dot_dtype == torch.bfloat16 and c % TC_TILE == 0:
+        return _tc_plan(e)
+    floats = ((_ROW_TILE + 4) * e + (_ROW_TILE + 2) * c
+              + 3 * _K3_WEIGHT_SLICE * e)
+    return ConvFFPlan("cuda_core", _ROW_TILE, 4 * floats)
+
+
 def plan_conv_ff_blocked(t: int, e: int, c: int, c_block: int,
                          dot_dtype) -> ConvFFPlan:
     """K4's instance at (T, E, C) and C block for ``dot_dtype``, mirroring
@@ -141,12 +216,7 @@ def plan_conv_ff_blocked(t: int, e: int, c: int, c_block: int,
             f"C within {SMEM_BYTES} bytes of shared memory, got E={e}, "
             f"C={c}, c_block={c_block}")
     if dot_dtype == torch.bfloat16:
-        row = TC_TILE + TC_PAD
-        conv = ((TC_TILE + 2) * (TC_CONV_DEPTH + TC_PAD)
-                + 3 * TC_CONV_DEPTH * row)
-        wgrad = (TC_WGRAD_ROWS + 2) * row + TC_WGRAD_ROWS * row
-        return ConvFFPlan("tensor_core", TC_TILE,
-                          max(TC_STAGES * 2 * max(conv, wgrad), 8 * 5 * e * 4))
+        return _tc_plan(e)
     return ConvFFPlan("cuda_core", _ROW_TILE, blocked_smem_bytes(e, c_block))
 
 
@@ -306,9 +376,9 @@ def conv_ff_plain_backward(x, w1, b1, w2, b2, ln_s, ln_b, film, seeds, g,
 # ----------------------------------------------------------------------
 @functools.cache
 def _tc_kernels():
-    """The C entry points of ``csrc/conv_ff_blocked_tc.cu`` (K4's
-    tensor-core instance), built at first use: (workspace bytes, forward,
-    backward)."""
+    """The C entry points of ``csrc/conv_ff_blocked_tc.cu`` (the
+    tensor-core instance of K3 and K4), built at first use: (workspace
+    bytes, forward, backward)."""
     lib = load_library("conv_ff_blocked_tc")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     ws = lib.conv_ff_blocked_tc_workspace_bytes
@@ -323,11 +393,20 @@ def _tc_kernels():
 
 
 def tc_smem_bytes(e: int) -> int:
-    """The built kernel's own count of what :func:`plan_conv_ff_blocked`
-    mirrors for the tensor-core instance at width E."""
+    """The built kernel's own count of what :func:`plan_conv_ff_train`
+    and :func:`plan_conv_ff_blocked` mirror for the tensor-core instance at
+    width E."""
     fn = load_library("conv_ff_blocked_tc").conv_ff_blocked_tc_smem_bytes
     fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_longlong
     return int(fn(e))
+
+
+def cuda_core_smem_bytes(c: int) -> int:
+    """The built kernel's own count of what :func:`plan_conv_ff_train`
+    mirrors for K3's CUDA-core instance at C conv channels."""
+    fn = load_library("conv_ff_train").conv_ff_train_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_longlong
+    return int(fn(c))
 
 
 @functools.cache
@@ -352,19 +431,12 @@ def _kernels(blocked: bool):
 
 
 def _check_cuda(x, w1k, b1, w2k, b2, ln_s, ln_b, film, seeds, dot_dtype,
-                g=None, c_block=None):
+                g=None, c_block=None, reversed_weights=None):
     """Raise on what K3 (``c_block`` None) or K4 does not take; return
-    (B, T, C)."""
+    (B, T, C, whether the plan names the tensor-core instance)."""
     B, T, E = x.shape
     C = w1k.shape[-1]
     f32 = torch.float32
-    tensors = {"x": (x, (B, T, E), f32), "w1": (w1k, (3, E, C), f32),
-               "b1": (b1, (C,), f32), "w2": (w2k, (3, C, E), f32),
-               "b2": (b2, (E,), f32), "ln_s": (ln_s, (E,), f32),
-               "ln_b": (ln_b, (E,), f32), "film": (film, (B, 2 * E), f32),
-               "seeds": (seeds, (B,), torch.int32)}
-    if g is not None:
-        tensors["g"] = (g, (B, T, E), f32)
     if c_block is None:
         if E != KERNEL_WIDTH:
             raise ValueError(f"conv_ff_train: the kernel takes "
@@ -382,12 +454,24 @@ def _check_cuda(x, w1k, b1, w2k, b2, ln_s, ln_b, film, seeds, dot_dtype,
             f"C={C}, c_block={c_block}")
     if dot_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"conv_ff_train: dot_dtype {dot_dtype}")
+    tensor_core = _tensor_core(x, C, c_block, dot_dtype)
+    wt = torch.bfloat16 if tensor_core else f32  # TCWeights or kernel_weights
+    tensors = {"x": (x, (B, T, E), f32), "w1": (w1k, (3, E, C), wt),
+               "b1": (b1, (C,), f32), "w2": (w2k, (3, C, E), wt),
+               "b2": (b2, (E,), f32), "ln_s": (ln_s, (E,), f32),
+               "ln_b": (ln_b, (E,), f32), "film": (film, (B, 2 * E), f32),
+               "seeds": (seeds, (B,), torch.int32)}
+    if g is not None:
+        tensors["g"] = (g, (B, T, E), f32)
+    if reversed_weights is not None:
+        tensors["w1r"] = (reversed_weights[0], (3, C, E), wt)
+        tensors["w2r"] = (reversed_weights[1], (3, E, C), wt)
     for name, (t, shape, dtype) in tensors.items():
         if (tuple(t.shape) != shape or t.dtype != dtype
                 or t.device != x.device or not t.is_contiguous()):
             raise ValueError(f"conv_ff_train: {name} must be contiguous "
                              f"{dtype} {shape} on {x.device}")
-    return B, T, C
+    return B, T, C, tensor_core
 
 
 def _dropout_args(rate):
@@ -401,9 +485,10 @@ def _shape_args(x, C, c_block):
 
 
 def _tensor_core(x, C, c_block, dot_dtype):
-    return c_block is not None and plan_conv_ff_blocked(
-        x.shape[1], x.shape[-1], C, c_block, dot_dtype).instance \
-        == "tensor_core"
+    T, E = x.shape[1], x.shape[-1]
+    plan = plan_conv_ff_train(T, E, C, dot_dtype) if c_block is None \
+        else plan_conv_ff_blocked(T, E, C, c_block, dot_dtype)
+    return plan.instance == "tensor_core"
 
 
 def _launched(err, c_block, tensor_core, direction):
@@ -418,38 +503,40 @@ def _launched(err, c_block, tensor_core, direction):
                 getattr(fn, f"tc_{direction}_launches") + 1)
 
 
-def _bf16(t):
-    return t.to(torch.bfloat16).contiguous()
+@functools.lru_cache(maxsize=64)
+def _tc_workspace_bytes(B, T, E, C, backward):
+    nbytes = _tc_kernels()[0](B, T, E, C, int(backward))
+    if nbytes < 0:
+        raise ValueError(f"conv_ff_train: the tensor-core kernel does not "
+                         f"take {(B, T, E)}, C={C}")
+    return nbytes
 
 
 def _tc_scratch(x, C, backward):
-    """K4's tensor-core operands in bf16 (x, rounded by the cast; the
-    weights, which already are bf16 values) and its workspace."""
+    """The tensor-core instance's x in bf16 (rounded by the cast) and its
+    workspace."""
     B, T, E = x.shape
-    nbytes = _tc_kernels()[0](B, T, E, C, int(backward))
-    if nbytes < 0:
-        raise ValueError(f"conv_ff_train_blocked: the kernel does not take "
-                         f"{tuple(x.shape)}, C={C}")
-    return _bf16(x), torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+    nbytes = _tc_workspace_bytes(B, T, E, C, backward)
+    return (x.to(torch.bfloat16),
+            torch.empty(nbytes, dtype=torch.uint8, device=x.device))
 
 
 def conv_ff_forward_cuda(x, w1k, b1, w2k, b2, ln_s, ln_b, film, seeds,
                          rate, dot_dtype, c_block=None):
-    """K3's forward kernel, or K4's with ``c_block`` (its tensor-core
-    instance at bfloat16 dots), on kernel-layout weights (see
-    :func:`kernel_weights`)."""
-    B, T, C = _check_cuda(x, w1k, b1, w2k, b2, ln_s, ln_b, film, seeds,
-                          dot_dtype, c_block=c_block)
-    tensor_core = _tensor_core(x, C, c_block, dot_dtype)
+    """K3's forward kernels, or K4's with ``c_block`` (the tensor-core
+    instance where the plan names it), on kernel-layout weights: float32
+    from :func:`kernel_weights` for the CUDA-core instance, bfloat16 from
+    :func:`tc_weights` for the tensor-core one."""
+    B, T, C, tensor_core = _check_cuda(x, w1k, b1, w2k, b2, ln_s, ln_b, film,
+                                       seeds, dot_dtype, c_block=c_block)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         if tensor_core:
             xb, ws = _tc_scratch(x, C, False)
-            w1b, w2b = _bf16(w1k), _bf16(w2k)
             err = _tc_kernels()[1](
-                xb.data_ptr(), x.data_ptr(), w1b.data_ptr(), b1.data_ptr(),
-                w2b.data_ptr(), b2.data_ptr(), ln_s.data_ptr(),
+                xb.data_ptr(), x.data_ptr(), w1k.data_ptr(), b1.data_ptr(),
+                w2k.data_ptr(), b2.data_ptr(), ln_s.data_ptr(),
                 ln_b.data_ptr(), film.data_ptr(), seeds.data_ptr(),
                 ws.data_ptr(), out.data_ptr(), B, T, x.shape[-1], C,
                 *_dropout_args(rate), stream)
@@ -465,17 +552,21 @@ def conv_ff_forward_cuda(x, w1k, b1, w2k, b2, ln_s, ln_b, film, seeds,
 
 
 def conv_ff_backward_cuda(x, w1k, b1, w2k, b2, ln_s, ln_b, film, seeds, g,
-                          rate, dot_dtype, c_block=None):
-    """K3's backward kernels, or K4's with ``c_block`` (its tensor-core
-    instance at bfloat16 dots), on kernel-layout weights: float32 (dx, dw1
-    (3, E, C), db1, dw2 (3, C, E), db2, dln_s, dln_b, dfilm)."""
-    B, T, C = _check_cuda(x, w1k, b1, w2k, b2, ln_s, ln_b, film, seeds,
-                          dot_dtype, g, c_block)
+                          rate, dot_dtype, c_block=None,
+                          reversed_weights=None):
+    """K3's backward kernels, or K4's with ``c_block`` (the tensor-core
+    instance where the plan names it), on kernel-layout weights as
+    :func:`conv_ff_forward_cuda` takes them and their tap-reversed
+    transposes (w1r, w2r) (made here where None): float32 (dx, dw1 (3, E,
+    C), db1, dw2 (3, C, E), db2, dln_s, dln_b, dfilm)."""
+    B, T, C, tensor_core = _check_cuda(x, w1k, b1, w2k, b2, ln_s, ln_b, film,
+                                       seeds, dot_dtype, g, c_block,
+                                       reversed_weights)
     E = x.shape[-1]
-    tensor_core = _tensor_core(x, C, c_block, dot_dtype)
-    # tap-reversed transposes for the data gradients
-    w1r = w1k.flip(0).transpose(1, 2).contiguous()   # (3, C, E)
-    w2r = w2k.flip(0).transpose(1, 2).contiguous()   # (3, E, C)
+    if reversed_weights is None:
+        reversed_weights = (w1k.flip(0).transpose(1, 2).contiguous(),
+                            w2k.flip(0).transpose(1, 2).contiguous())
+    w1r, w2r = reversed_weights
     dx = torch.empty_like(x)
     dw1 = torch.empty((3, E, C), dtype=torch.float32, device=x.device)
     dw2 = torch.empty((3, C, E), dtype=torch.float32, device=x.device)
@@ -488,10 +579,9 @@ def conv_ff_backward_cuda(x, w1k, b1, w2k, b2, ln_s, ln_b, film, seeds, g,
         stream = torch.cuda.current_stream().cuda_stream
         if tensor_core:
             xb, ws = _tc_scratch(x, C, True)
-            w1b, w2b, w1r, w2r = (_bf16(w) for w in (w1k, w2k, w1r, w2r))
             err = _tc_kernels()[2](
-                xb.data_ptr(), x.data_ptr(), w1b.data_ptr(), b1.data_ptr(),
-                w2b.data_ptr(), b2.data_ptr(), ln_s.data_ptr(),
+                xb.data_ptr(), x.data_ptr(), w1k.data_ptr(), b1.data_ptr(),
+                w2k.data_ptr(), b2.data_ptr(), ln_s.data_ptr(),
                 ln_b.data_ptr(), film.data_ptr(), seeds.data_ptr(),
                 g.data_ptr(), w1r.data_ptr(), w2r.data_ptr(), ws.data_ptr(),
                 *grads, B, T, E, C, *_dropout_args(rate), stream)
@@ -511,6 +601,15 @@ def conv_ff_backward_cuda(x, w1k, b1, w2k, b2, ln_s, ln_b, film, seeds, g,
     return dx, dw1, db1, dw2, dvec[2], dvec[0], dvec[1], dfilm
 
 
+def _instance_weights(x, w1, w2, c_block, dot_dtype):
+    """The weights in the type and layout of the instance the plan names:
+    (w1k, w2k, (w1r, w2r) or None)."""
+    if _tensor_core(x, w1.shape[0], c_block, dot_dtype):
+        w = tc_weights(w1, w2)
+        return w.w1, w.w2, (w.w1r, w.w2r)
+    return (*kernel_weights(w1, w2, dot_dtype), None)
+
+
 class _ConvFFTrain(torch.autograd.Function):
     """K3 (``c_block`` None) or K4 with its C block."""
 
@@ -525,7 +624,7 @@ class _ConvFFTrain(torch.autograd.Function):
                                          dot_dtype)
         if x.device.type != "cuda":
             raise ValueError(f"conv_ff_train: unsupported device {x.device}")
-        w1k, w2k = kernel_weights(w1, w2, dot_dtype)
+        w1k, w2k, _ = _instance_weights(x, w1, w2, c_block, dot_dtype)
         return conv_ff_forward_cuda(x.contiguous(), w1k, b1.contiguous(),
                                     w2k, b2.contiguous(), ln_s.contiguous(),
                                     ln_b.contiguous(), film.contiguous(),
@@ -541,11 +640,11 @@ class _ConvFFTrain(torch.autograd.Function):
                 x, w1, b1, w2, b2, ln_s, ln_b, film, seeds, g, rate,
                 c_block or w1.shape[0], dot_dtype)
         else:
-            w1k, w2k = kernel_weights(w1, w2, dot_dtype)
+            w1k, w2k, rev = _instance_weights(x, w1, w2, c_block, dot_dtype)
             dx, dw1, db1, dw2, db2, dls, dlb, dfilm = conv_ff_backward_cuda(
                 x.contiguous(), w1k, b1.contiguous(), w2k, b2.contiguous(),
                 ln_s.contiguous(), ln_b.contiguous(), film.contiguous(),
-                seeds, g, rate, dot_dtype, c_block)
+                seeds, g, rate, dot_dtype, c_block, rev)
             grads = (dx, dw1.permute(2, 1, 0), db1, dw2.permute(2, 1, 0),
                      db2, dls, dlb, dfilm)
         return (*grads, None, None, None, None)
@@ -583,5 +682,7 @@ conv_ff_train.bwd_launches = 0
 conv_ff_train_blocked.fwd_launches = 0
 conv_ff_train_blocked.bwd_launches = 0
 # the launches of the above that took the tensor-core instance
+conv_ff_train.tc_fwd_launches = 0
+conv_ff_train.tc_bwd_launches = 0
 conv_ff_train_blocked.tc_fwd_launches = 0
 conv_ff_train_blocked.tc_bwd_launches = 0

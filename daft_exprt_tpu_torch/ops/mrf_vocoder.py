@@ -9,9 +9,12 @@ dilation d
   x <- x + conv2(leaky(conv1_d(leaky(x))))        (ResBlock1)
   x <- x + conv1_d(leaky(x))                      (ResBlock2)
 
-The CUDA kernel (``csrc/mrf_vocoder.cu``) computes the whole fan for one
-time tile per block, with every inter-conv activation in shared memory;
-see the source for what bounds it on an H100 and how the design answers
+A CUDA kernel computes the whole fan for one time tile per block, with
+every inter-conv activation in shared memory; :func:`plan_mrf` names its
+instance: at C = 32, 64 and 128 (every V1 stage) the tensor-core one,
+``csrc/mrf_vocoder_tc.cu`` (each conv a shifted-row GEMM on bf16
+``mma.sync``), at C = 8 and 16 the CUDA-core one, ``csrc/mrf_vocoder.cu``.
+See the sources for what bounds them on an H100 and how the designs answer
 it.
 
 Numerics follow the Pallas kernel: every conv's input is leaky(x)
@@ -35,11 +38,16 @@ import torch.nn.functional as F
 from daft_exprt_tpu_torch.ops._build import load_library
 
 LRELU_SLOPE = 0.1
-KERNEL_CHANNELS = (8, 16, 32, 64, 128)  # the CUDA kernel's instances
+KERNEL_CHANNELS = (8, 16, 32, 64, 128)  # the CUDA kernels' instances
+TC_CHANNELS = (32, 64, 128)  # the tensor-core instance's; the rest CUDA-core
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use (H100)
 _SLACK_ROWS = 8  # rows a thread's last row group may read past the region
+# the tensor-core instance (csrc/mrf_vocoder_tc.cu): rows of X (float32)
+# and the bf16 operand padded by 8 elements, a 3-stage ring of 32 input
+# channels of one tap's weights, 8 warps of up to 128 accumulators a lane
+_TC_PAD, _TC_STAGES, _TC_DEPTH = 8, 3, 32
 
-# descriptor flags, as in csrc/mrf_vocoder.cu
+# descriptor flags, as in csrc/mrf_vocoder.cu and csrc/mrf_vocoder_tc.cu
 CHAIN_START, SECOND_CONV, TO_CARRY, CHAIN_END, FIRST_CHAIN = 1, 2, 4, 8, 16
 
 
@@ -127,28 +135,79 @@ def mrf_plain(x, program: MrfProgram, dot_dtype=torch.bfloat16):
 # Wrapper
 # ----------------------------------------------------------------------
 @functools.cache
-def _kernel():
-    """The C entry point of ``csrc/mrf_vocoder.cu``, built at first use."""
-    fn = load_library("mrf_vocoder").mrf_forward
+def _kernel(tensor_core: bool):
+    """The C entry point of ``csrc/mrf_vocoder_tc.cu`` or
+    ``csrc/mrf_vocoder.cu``, built at first use."""
+    lib = load_library("mrf_vocoder_tc" if tensor_core else "mrf_vocoder")
+    fn = lib.mrf_tc_forward if tensor_core else lib.mrf_forward
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + \
         [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
+def kernel_smem_bytes(C: int, halo: int) -> int:
+    """The built tensor-core kernel's own count of what :func:`plan_mrf`
+    mirrors (0 where it does not take the shape)."""
+    fn = load_library("mrf_vocoder_tc").mrf_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int] * 2, ctypes.c_int
+    return int(fn(C, halo))
+
+
 def tile_rows(C: int) -> int:
-    """Output samples per block: 8192 / C, so that the tile's rows of
-    all channels cost the same at every width."""
+    """The CUDA-core instance's output samples per block: 8192 / C, so
+    that the tile's rows of all channels cost the same at every width."""
     return 8192 // C
 
 
 def smem_bytes(C: int, halo: int) -> int:
-    """Shared memory of one block: the float32 carry over the tile and
-    both halos, two bf16 conv operands with slack rows, the float32 sum
-    of the chains over the tile."""
+    """Shared memory of one CUDA-core block: the float32 carry over the
+    tile and both halos, two bf16 conv operands with slack rows, the
+    float32 sum of the chains over the tile."""
     tn = tile_rows(C)
     rows = tn + 2 * halo
     return rows * C * 4 + 2 * (rows + _SLACK_ROWS) * C * 2 + tn * C * 4
+
+
+def tc_row_groups(C: int) -> int:
+    """Warps of the tensor-core instance that split a conv's m16 tiles
+    round-robin: 8 warps over C / min(C, 64) column groups."""
+    return 8 // (C // min(C, 64))
+
+
+class MrfPlan(NamedTuple):
+    instance: str     # "tensor_core" or "cuda_core"
+    tile_rows: int    # output samples a block owns
+    smem_bytes: int   # its dynamic shared memory
+
+
+def plan_mrf(C: int, halo: int) -> MrfPlan:
+    """K5's instance at width C for a fan of one-sided reach ``halo``,
+    mirroring the kernels (``tile_rows`` and ``mrf_smem_bytes`` of
+    ``csrc/mrf_vocoder_tc.cu``): at C in :data:`TC_CHANNELS` the
+    tensor-core instance with the largest tile (a multiple of 16 samples)
+    whose rows, tile plus both halos, fit one block's shared memory (float32
+    carry and bf16 operand, rows padded by 8 elements, beside the weight
+    ring) and its warps' accumulators (8 warps x 16 rows x 128 / (C/2 or
+    16) m16 tiles); at C = 8 or 16 the CUDA-core instance
+    (:func:`tile_rows`, :func:`smem_bytes`). Raises ValueError where
+    neither takes the shape."""
+    if C in TC_CHANNELS and halo >= 0:
+        ld = C + _TC_PAD
+        ring = _TC_STAGES * _TC_DEPTH * ld * 2
+        wc = min(C, 64)
+        rows = min((SMEM_LIMIT - ring) // (ld * 6),
+                   tc_row_groups(C) * 16 * (256 // wc))
+        tn = (rows - 2 * halo) // 16 * 16
+        if tn >= 16:
+            return MrfPlan("tensor_core", tn, (tn + 2 * halo) * ld * 6 + ring)
+    elif C in KERNEL_CHANNELS and halo >= 0 \
+            and smem_bytes(C, halo) <= SMEM_LIMIT:
+        return MrfPlan("cuda_core", tile_rows(C), smem_bytes(C, halo))
+    raise ValueError(f"fused_mrf: no kernel takes C={C} with a halo of "
+                     f"{halo} samples (C in {KERNEL_CHANNELS}, the tile and "
+                     f"both halos within {SMEM_LIMIT} bytes of shared "
+                     "memory)")
 
 
 def _check_cuda(x, program):
@@ -166,12 +225,9 @@ def _check_cuda(x, program):
                 program.w_taps, program.biases, program.desc))):
         raise ValueError(f"fused_mrf: program for C={C} on {x.device} "
                          "expected")
-    if smem_bytes(C, program.halo) > SMEM_LIMIT:
-        raise ValueError(f"fused_mrf: halo {program.halo} needs "
-                         f"{smem_bytes(C, program.halo)} bytes of shared "
-                         f"memory per block (limit {SMEM_LIMIT})")
     if B == 0 or N == 0:
         raise ValueError("fused_mrf: empty input")
+    return plan_mrf(C, program.halo)
 
 
 def fused_mrf(x, program: MrfProgram):
@@ -182,27 +238,31 @@ def fused_mrf(x, program: MrfProgram):
     :return: (B, N, C) float32, the mean over the resblock chains
 
     A CPU tensor takes :func:`mrf_plain` at bf16; a CUDA tensor launches
-    the CUDA kernel (counted in ``fused_mrf.launches``) or raises.
+    the kernel :func:`plan_mrf` names (counted in ``fused_mrf.launches``;
+    the tensor-core instance also in ``fused_mrf.tc_launches``) or raises.
     """
     if x.device.type == "cpu":
         return mrf_plain(x, program)
     if x.device.type != "cuda":
         raise ValueError(f"fused_mrf: unsupported device {x.device}")
-    _check_cuda(x, program)
+    plan = _check_cuda(x, program)
+    tensor_core = plan.instance == "tensor_core"
     B, N, C = x.shape
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel()(
+        err = _kernel(tensor_core)(
             x.data_ptr(), program.w_taps.data_ptr(),
             program.biases.data_ptr(), program.desc.data_ptr(),
             out.data_ptr(), B, N, C, program.desc.shape[0], program.halo,
-            tile_rows(C), smem_bytes(C, program.halo),
-            1.0 / len(program.chains), stream)
+            plan.tile_rows, plan.smem_bytes, 1.0 / len(program.chains),
+            stream)
     if err != 0:
         raise RuntimeError(f"fused_mrf: CUDA error {err} at launch")
     fused_mrf.launches += 1
+    fused_mrf.tc_launches += tensor_core
     return out
 
 
 fused_mrf.launches = 0
+fused_mrf.tc_launches = 0  # the launches that took the tensor-core instance

@@ -3,8 +3,11 @@
 Weights cross with ``convert.state_dict_from_jax`` from the JAX
 ``init_params`` (duration head pinned to 0.12 s per phone, so rows
 decode to tens of frames); inputs are collated from a numpy seed. Both
-run in float32 at ``tests/helpers.tiny_hparams``.
+run in float32 at ``tests/helpers.tiny_hparams``, and once in bfloat16
+against eager JAX with the fused FFT block (K1) forced on.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -18,6 +21,7 @@ from daft_exprt_tpu.inference import inputs as jinputs
 from daft_exprt_tpu.inference.engine import InferenceEngine as JaxEngine
 from daft_exprt_tpu.models import modules as jnn
 from daft_exprt_tpu.models.daft_exprt import DaftExprt as JaxDaftExprt
+from daft_exprt_tpu.ops.fft_block import fused_fft_block as jax_fused_fft
 from daft_exprt_tpu_torch.config import HyperParams
 from daft_exprt_tpu_torch.convert import (fft_block_state_dict,
                                           state_dict_from_jax)
@@ -188,6 +192,53 @@ def test_inference_matches_jax(models, pitch_transform, max_frames):
         assert jout[1][2].any() and not jout[1][2].all()
     assert (jout[1][1] > 20).all()  # real decodes, not empty rows
     _assert_outputs_match(tout, jout)
+
+
+def _rel_l2(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return np.linalg.norm(got - want) / np.linalg.norm(want)
+
+
+# bf16 inference, the port (K1's plain version at bf16 dots on the CPU)
+# against eager JAX with the Pallas K1 in interpret mode: both round at the
+# same points, so only float32 summation order is left (readings <= 2e-7
+# relative L2 on the mel, the predictions and the attention weights); a
+# missing or extra bf16 rounding moves them by ~1e-3
+BF16_INFERENCE_REL_L2 = 1e-5
+
+
+@pytest.mark.parametrize("pitch_transform", ["add", "multiply"])
+def test_inference_bf16_matches_eager_jax(monkeypatch, pitch_transform):
+    """``DaftExprt.inference`` at ``compute_dtype="bfloat16"``. JAX runs
+    eagerly (no outer ``jax.jit``: jitted XLA:CPU keeps bf16
+    intermediates in float32) with K1 forced on, as ``tests/test_fft_block.py``
+    runs it: in interpret mode."""
+    jhp, thp = _hparams(compute_dtype="bfloat16")
+    jmodel = JaxDaftExprt(jhp)
+    params = jax.device_get(pinned_init_params(jmodel, seed=0))
+    tmodel = DaftExprt(thp, device="cpu", seed=1)
+    tmodel.load_state_dict(state_dict_from_jax(params), strict=True)
+    monkeypatch.setattr(jnn, "use_fused_fft_block", lambda *a: True)
+    monkeypatch.setattr(jnn, "fused_fft_block",
+                        functools.partial(jax_fused_fft, interpret=True))
+    inputs = _collate(jhp, thp, _batch(thp, pitch_transform))
+    means, stds = tinputs.pitch_stats_arrays(thp)
+    jmeans, jstds = jinputs.pitch_stats_arrays(jhp)
+    jout = jax.device_get(jmodel.inference(params, inputs, pitch_transform,
+                                           jmeans, jstds, MAX_FRAMES))
+    tout = jax.tree.map(lambda t: t.numpy(), tmodel.inference(
+        [torch.from_numpy(a) for a in inputs], pitch_transform, means, stds,
+        MAX_FRAMES))
+    (t_enc, t_dec, t_w), (j_enc, j_dec, j_w) = tout, jout
+    for i in (1, 4):  # durations_int, input_lengths
+        np.testing.assert_array_equal(t_enc[i], j_enc[i])
+    for i in (1, 2):  # output_lengths, overflow
+        np.testing.assert_array_equal(t_dec[i], j_dec[i])
+    assert (j_dec[1] > 20).all()
+    errs = {"mel": _rel_l2(t_dec[0], j_dec[0]), "weights": _rel_l2(t_w, j_w),
+            **{name: _rel_l2(t_enc[i], j_enc[i]) for name, i in (
+                ("duration", 0), ("energy", 2), ("pitch", 3))}}
+    assert all(e <= BF16_INFERENCE_REL_L2 for e in errs.values()), errs
 
 
 @pytest.mark.parametrize("policy,pitch_transform,short_speculation", [

@@ -38,7 +38,8 @@ from daft_exprt_tpu_torch.ops.attention_train import (attention_core,
 from daft_exprt_tpu_torch.ops.conv_ff_train import (
     SMEM_BYTES, blocked_smem_bytes, conv_ff_blocked_plain,
     conv_ff_blocked_plain_backward, conv_ff_plain, conv_ff_plain_backward,
-    conv_ff_train, conv_ff_train_blocked, plan_conv_ff, plan_conv_ff_blocked)
+    conv_ff_train, conv_ff_train_blocked, kernel_weights, plan_conv_ff,
+    plan_conv_ff_blocked, plan_conv_ff_train, tc_weights)
 from daft_exprt_tpu_torch.ops.gaussian_upsampling import normalize
 from daft_exprt_tpu_torch.ops.grad_reversal import gradient_reversal
 
@@ -131,6 +132,37 @@ def test_attention_core_f32_inputs_bf16_dots_match_jax(rate, width):
     out.backward(_t(g))
     errs = {"out": _rel_l2(out.detach().numpy(), want), **{
         f"d{n}": _rel_l2(t.grad.numpy(), w)
+        for n, t, w in zip("qkv", (tq, tk, tv), want_grads)}}
+    assert all(e <= 5e-4 for e in errs.values()), errs
+
+
+@pytest.mark.parametrize("H,rate,width", [
+    pytest.param(2, 0.0, E, id="2-0.0"), pytest.param(8, 0.1, E, id="8-0.1"),
+    pytest.param(2, 0.1, 256, id="E256-2-0.1")])
+def test_attention_core_bf16_inputs_match_jax(H, rate, width):
+    """bfloat16 q/k/v and dots, the training path's inputs (the card's
+    tensor-core instance; the plain version here), against the Pallas
+    kernels in interpret mode and their VJP, run eagerly: relative L2 5e-4
+    on out, dq, dk and dv. Both round at the same points, so what is left
+    is float32 summation order and the bf16 rounding of the gradients it
+    moves (~6e-5)."""
+    q, k, v, g, lengths, seeds = _attention_inputs(40 + H, width)
+    q, k, v = (a.astype(jnp.bfloat16) for a in (q, k, v))
+
+    def jfn(q, k, v):
+        return jax_attention(q, k, v, jnp.asarray(lengths),
+                             jnp.asarray(seeds), H, rate, jnp.bfloat16, True)
+
+    want, vjp = jax.vjp(jfn, *(jnp.asarray(a) for a in (q, k, v)))
+    want_grads = vjp(jnp.asarray(g))
+    tq, tk, tv = (torch.from_numpy(np.asarray(a, np.float32)).to(
+        torch.bfloat16).requires_grad_() for a in (q, k, v))
+    out = attention_core(tq, tk, tv, _t(lengths), _t(seeds), H, rate,
+                         torch.bfloat16)
+    out.backward(_t(g))
+    assert tq.grad.dtype == torch.bfloat16
+    errs = {"out": _rel_l2(out.detach().numpy(), want), **{
+        f"d{n}": _rel_l2(t.grad.float().numpy(), np.asarray(w, np.float32))
         for n, t, w in zip("qkv", (tq, tk, tv), want_grads)}}
     assert all(e <= 5e-4 for e in errs.values()), errs
 
@@ -348,6 +380,92 @@ def test_plan_conv_ff_picks_the_jax_kernel(monkeypatch, shape):
     got = plan_conv_ff(*shape, 3)
     assert (got == C_) == (want == C_)
     assert C_ % got == 0
+
+
+@pytest.mark.parametrize("T_,C_", [(768, 1024), (128, 1024), (40, 1024),
+                                   (2048, 1024), (64, 256)])
+def test_plan_conv_ff_train_bf16_takes_tensor_cores(T_, C_):
+    """K3 at bf16 dots runs the tensor-core instance that K4 runs (one C
+    block): 128-row tiles, its 109,536 bytes of shared memory at E=128,
+    at every training shape T."""
+    plan = plan_conv_ff_train(T_, 128, C_, torch.bfloat16)
+    assert plan == ("tensor_core", 128, 109536)
+    assert plan == plan_conv_ff_blocked(T_, 128, C_, 128, torch.bfloat16)
+
+
+@pytest.mark.parametrize("C_,dtype", [(1024, torch.float32),
+                                      (576, torch.bfloat16),
+                                      (1344, torch.float32)])
+def test_plan_conv_ff_train_cuda_cores(C_, dtype):
+    """float32 dots, and bf16 at C % 128 != 0, keep K3's CUDA-core
+    instance: 32-row tiles whose shared memory fits one block and grows
+    with C (chip_smoke.py holds the bytes against the built kernel's
+    ``conv_ff_train_smem_bytes``)."""
+    plan = plan_conv_ff_train(768, 128, C_, dtype)
+    assert plan.instance == "cuda_core" and plan.rows == 32
+    assert plan.smem_bytes <= SMEM_BYTES
+    assert plan_conv_ff_train(768, 128, C_ - 64, dtype).smem_bytes \
+        < plan.smem_bytes
+
+
+def test_tc_weights_are_the_rounded_kernel_weights_made_once(rng_np):
+    """The tensor-core instance's bf16 weights are the kernel layout's
+    rounded weights and their tap-reversed transposes, bit for bit; they
+    are made once for the micro-batches of a step and again after an
+    in-place update or a new weight."""
+    w1, w2 = (torch.nn.Parameter(_t(rng_np.standard_normal(shape).astype(
+        np.float32))) for shape in ((256, 128, 3), (128, 256, 3)))
+    made = tc_weights(w1, w2)
+    assert all(w.dtype == torch.bfloat16 and w.is_contiguous()
+               for w in made)
+    w1k, w2k = kernel_weights(w1, w2, torch.bfloat16)
+    for got, want in ((made.w1, w1k), (made.w2, w2k),
+                      (made.w1r, w1k.flip(0).transpose(1, 2)),
+                      (made.w2r, w2k.flip(0).transpose(1, 2))):
+        assert torch.equal(got.float(), want)
+    assert tc_weights(w1, w2) is made
+    with torch.no_grad():
+        w2.add_(1.0)  # as the optimizer updates it
+    again = tc_weights(w1, w2)
+    assert again is not made
+    assert torch.equal(again.w2.float(),
+                       kernel_weights(w1, w2, torch.bfloat16)[1])
+    other = torch.nn.Parameter(w2.detach().clone())
+    assert tc_weights(w1, other) is not again
+
+
+def test_conv_ff_wrapper_takes_bf16_weights_on_tensor_cores():
+    """The tensor-core instance (bf16 dots) reads bf16 weights, the
+    CUDA-core one (f32 dots) float32 weights: each refuses the other's
+    before any launch."""
+    from daft_exprt_tpu_torch.ops.conv_ff_train import conv_ff_forward_cuda
+    E_, C_ = 128, 256
+    vecs = (torch.zeros(C_), torch.zeros(E_), torch.zeros(E_),
+            torch.zeros(E_))
+    rest = (torch.zeros((2, 2 * E_)), torch.zeros((2,), dtype=torch.int32))
+    for dot_dtype, wrong in ((torch.bfloat16, torch.float32),
+                             (torch.float32, torch.bfloat16)):
+        w1 = torch.zeros((3, E_, C_), dtype=wrong)
+        w2 = torch.zeros((3, C_, E_), dtype=wrong)
+        with pytest.raises(ValueError, match="w1 must be contiguous"):
+            conv_ff_forward_cuda(torch.zeros((2, 16, E_)), w1, vecs[0], w2,
+                                 *vecs[1:], *rest, 0.0, dot_dtype)
+
+
+@pytest.mark.parametrize("E_,C_", [(256, 1024), (128, 1400), (128, 96)])
+def test_plan_conv_ff_train_refuses_outside_k3(E_, C_):
+    with pytest.raises(ValueError, match="conv_ff_train"):
+        plan_conv_ff_train(768, E_, C_, torch.bfloat16)
+
+
+def test_conv_ff_train_on_the_cpu_counts_no_launch():
+    jparams, x, g, film, seeds = _conv_ff_inputs(8)
+    counters = ("fwd_launches", "bwd_launches", "tc_fwd_launches",
+                "tc_bwd_launches")
+    before = [getattr(conv_ff_train, c) for c in counters]
+    leaves = [_t(a, grad=True) for a in (x, *_port_params(jparams), film)]
+    conv_ff_train(*leaves, _t(seeds), 0.1, torch.bfloat16).backward(_t(g))
+    assert [getattr(conv_ff_train, c) for c in counters] == before
 
 
 # ----------------------------------------------------------------------

@@ -8,6 +8,10 @@ cross back through the same mapping. The port's FFT blocks take K2's and
 K3's plain forward and backward here; the JAX package's training path on
 the CPU is XLA autodiff, the same function.
 
+One bfloat16 step (loss and gradients) is held against eager JAX with the
+training Pallas kernels (K2, K3) forced on in interpret mode: the port's
+plain versions round where those kernels round.
+
 A tiny wide-head configuration (E=256, 2 heads of 128, conv channels
 256) takes the same checks through the C-blocked conv-FF (K4): there
 ``plan_conv_ff`` leaves K3 for K4, whose plain version runs here.
@@ -28,7 +32,10 @@ import torch
 
 from helpers import synthetic_batch, tiny_hparams
 
+from daft_exprt_tpu.models import modules as jnn
 from daft_exprt_tpu.models.daft_exprt import DaftExprt as JaxDaftExprt
+from daft_exprt_tpu.ops.attention_train import attention_core as jax_attention
+from daft_exprt_tpu.ops.conv_ff_train import conv_ff_train as jax_conv_ff
 from daft_exprt_tpu.training import loss as jloss
 from daft_exprt_tpu.training import step as jstep
 from daft_exprt_tpu.training.schedule import make_lr_schedule as jax_schedule
@@ -88,9 +95,10 @@ def _torch(tree):
     return torch.from_numpy(np.array(tree, copy=True))
 
 
-def _reference(jhp, thp, batch):
+def _reference(jhp, thp, batch, jit=True):
     """JAX params crossed into the port (strict), and JAX's loss, first
-    micro-batch outputs and accumulated gradients on ``batch``."""
+    micro-batch outputs and accumulated gradients on ``batch`` (eagerly
+    where ``jit`` is False)."""
     jmodel = JaxDaftExprt(jhp)
     params = jax.device_get(jmodel.init_params(jax.random.PRNGKey(0)))
     tmodel = DaftExprt(thp, device="cpu", seed=1)
@@ -108,8 +116,8 @@ def _reference(jhp, thp, batch):
             first = outs if first is None else first
         return total, first
 
-    (loss, outs), grads = jax.jit(jax.value_and_grad(
-        loss_accum, has_aux=True))(params)
+    grad_fn = jax.value_and_grad(loss_accum, has_aux=True)
+    (loss, outs), grads = (jax.jit(grad_fn) if jit else grad_fn)(params)
     return dict(jhp=jhp, thp=thp, jmodel=jmodel, params=params,
                 tmodel=tmodel, batch=batch, loss=float(loss),
                 outs=jax.device_get(outs), grads=jax.device_get(grads))
@@ -126,6 +134,21 @@ def wide_setup():
     jhp, thp = _wide_hparams()
     return _reference(jhp, thp, _stacked_batch(jhp, max_symbols=16,
                                                max_frames=64))
+
+
+@pytest.fixture(scope="module")
+def bf16_setup():
+    """The bf16 step's reference: eager JAX (jitted XLA:CPU keeps bf16
+    intermediates in float32) on the Pallas training kernels in interpret
+    mode, which JAX dispatches only on a TPU."""
+    jhp, thp = _hparams(compute_dtype="bfloat16")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jnn, "use_train_attention", lambda *a: True)
+        mp.setattr(jnn, "attention_core",
+                   lambda *a: jax_attention(*a, True))
+        mp.setattr(jnn, "plan_conv_ff", lambda t, e, c, k: c)
+        mp.setattr(jnn, "conv_ff_train", lambda *a: jax_conv_ff(*a, True))
+        return _reference(jhp, thp, _stacked_batch(jhp), jit=False)
 
 
 @pytest.fixture
@@ -215,6 +238,43 @@ def test_wide_accumulated_gradients_match_jax_through_k4(wide_setup,
         s["batch"], torch.Generator().manual_seed(0), ITERATION)
     _check_gradients(s, model, metrics)
     assert conv_ff_spy == [128] * 3 * ACCUM
+
+
+# bf16 step against eager JAX: both round at the same points, so float32
+# summation order is what is left. Readings: loss 1.0e-7 and gradient norm
+# 8.8e-7 relative; all gradients together 1.1e-4 relative L2, each
+# parameter's <= 3.5e-3 (the small-norm biases of the Gaussian upsampling,
+# whose gradients are sums that cancel). A rounding point missing on one
+# side moves every gradient by ~1e-3.
+BF16_STEP_TOL = {"loss": 1e-5, "grad_norm": 1e-4, "grads": 5e-4,
+                 "param": 1e-2}
+
+
+def _rel_l2(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30)
+
+
+def test_bf16_step_matches_eager_jax(bf16_setup):
+    s = bf16_setup
+    model = copy.deepcopy(s["tmodel"])
+    metrics = make_train_step(model, s["thp"])(
+        s["batch"], torch.Generator().manual_seed(0), ITERATION)
+    want = state_dict_from_jax(s["grads"])
+    named = dict(model.named_parameters())
+    assert set(named) == set(want)
+    errs = {n: _rel_l2(p.grad.numpy(), want[n].numpy())
+            for n, p in named.items()}
+    got_all = np.concatenate([p.grad.numpy().ravel() for p in named.values()])
+    want_all = np.concatenate([want[n].numpy().ravel() for n in named])
+    found = {
+        "loss": abs(float(metrics["loss"]) - s["loss"]) / abs(s["loss"]),
+        "grad_norm": abs(float(metrics["grad_norm"]) - float(
+            optax.global_norm(s["grads"]))) / float(
+                optax.global_norm(s["grads"])),
+        "grads": _rel_l2(got_all, want_all), "param": max(errs.values())}
+    assert all(found[k] <= BF16_STEP_TOL[k] for k in found), (
+        found, max(errs, key=errs.get))
 
 
 @pytest.mark.parametrize("weighted", [False, True])

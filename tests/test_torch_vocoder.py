@@ -26,8 +26,10 @@ from daft_exprt_tpu.ops.mrf_vocoder import fused_mrf as jax_fused_mrf
 from daft_exprt_tpu.vocoder import hifigan as jhifigan
 from daft_exprt_tpu.vocoder import streaming as jstreaming
 from daft_exprt_tpu_torch.convert import generator_state_dict_from_jax
-from daft_exprt_tpu_torch.ops.mrf_vocoder import (build_mrf_program,
-                                                  fused_mrf, mrf_plain)
+from daft_exprt_tpu_torch.ops.mrf_vocoder import (SMEM_LIMIT,
+                                                  build_mrf_program,
+                                                  fused_mrf, mrf_plain,
+                                                  plan_mrf)
 from daft_exprt_tpu_torch.vocoder import hifigan
 from daft_exprt_tpu_torch.vocoder.streaming import (StreamingVocoder,
                                                     mel_halo_frames)
@@ -149,6 +151,67 @@ def test_mrf_program_packs_taps_and_flags(rng_np):
         program.w_taps[4].float().numpy(),
         torch.from_numpy(resblocks[0]["convs2"][0]["w"][1]).to(
             torch.bfloat16).float().numpy())
+
+
+# the published V3 generator (ResBlock2) and a narrow V1 whose later stages
+# reach C = 16 and 8, beside V1 itself
+V3 = {"upsample_rates": [8, 8, 4], "upsample_kernel_sizes": [16, 16, 8],
+      "upsample_initial_channel": 256, "resblock": "2",
+      "resblock_kernel_sizes": [3, 5, 7],
+      "resblock_dilation_sizes": [[1, 2], [2, 6], [3, 12]]}
+NARROW_V1 = {"upsample_initial_channel": 64}
+
+
+@pytest.mark.parametrize("cfg", [None, V3, NARROW_V1],
+                         ids=["v1", "v3", "narrow_v1"])
+def test_plan_mrf_fits_every_stage(cfg):
+    """Every K5 stage of V1, V3 and the narrow V1 has an instance within
+    one block's shared memory: the tensor-core one at C = 32, 64 and 128,
+    the CUDA-core one at C = 8 and 16 (the narrow V1's last stage, C = 4,
+    has none: it raises on the card)."""
+    gen = hifigan.HiFiGanGenerator(cfg, device="cpu", seed=0)
+    programs = gen.mrf_programs()
+    assert programs
+    for stage, program in programs.items():
+        C = gen.stage_channels(stage)
+        if C < 8:
+            with pytest.raises(ValueError):
+                plan_mrf(C, program.halo)
+            continue
+        plan = plan_mrf(C, program.halo)
+        assert plan.instance == ("tensor_core" if C >= 32 else "cuda_core")
+        assert 0 < plan.smem_bytes <= SMEM_LIMIT == 227 * 1024
+        assert plan.tile_rows % 16 == 0
+        assert plan.tile_rows + 2 * program.halo > 0
+
+
+def test_plan_mrf_v1_tiles():
+    """V1's halo of 60 samples: tiles of 128, 384 and 816 samples at C =
+    128, 64 and 32, each the largest multiple of 16 whose rows (tile and
+    both halos) fit the float32 carry, the bf16 operand and the weight
+    ring in shared memory, and the warps' accumulators."""
+    for C, tn, rows_cap in ((128, 128, 256), (64, 384, 512), (32, 816, 1024)):
+        plan = plan_mrf(C, 60)
+        assert plan == ("tensor_core", tn, (tn + 120) * (C + 8) * 6
+                        + 3 * 32 * (C + 8) * 2)
+        assert tn + 120 <= rows_cap
+        grown = (tn + 16 + 120) * (C + 8) * 6 + 3 * 32 * (C + 8) * 2
+        assert grown > SMEM_LIMIT or tn + 16 + 120 > rows_cap
+
+
+@pytest.mark.parametrize("C,halo", [(4, 12), (256, 60), (48, 60),
+                                    (128, 120), (16, 1000)])
+def test_plan_mrf_refuses_what_no_kernel_takes(C, halo):
+    with pytest.raises(ValueError, match="no kernel takes"):
+        plan_mrf(C, halo)
+
+
+def test_fused_mrf_on_the_cpu_counts_no_launch(rng_np):
+    program = _port_program(_resblocks(rng_np, 8, [3], [[1]], True, False),
+                            [[1]])
+    before = (fused_mrf.launches, fused_mrf.tc_launches)
+    fused_mrf(torch.zeros((1, 40, 8)), program)
+    assert (fused_mrf.launches, fused_mrf.tc_launches) == before
 
 
 # ----------------------------------------------------------------------
