@@ -9,17 +9,30 @@ result line):
 1. build the CUDA kernels from ``daft_exprt_tpu_torch/csrc`` with nvcc;
    print the card's name and power limit;
 2. hold the fused FFT block kernel (K1) against its plain PyTorch version
-   at the shapes the serving path launches it with, in float32 and
-   bfloat16, and time both (CUDA events, median of 25 after warm-up);
-   check edge shapes too (partial tiles, a zero-length row);
+   at the shapes the flagship and wide serving paths and the wide
+   evaluation step launch it with (E=128 and E=512) and at edge shapes
+   (partial tiles, E=256, a zero-length row): float32 on its CUDA-core
+   instance (max abs), bf16 on its tensor-core instance (max abs and
+   relative L2, beside a control -- the CUDA-core instance with its
+   rounding off -- that must fail the limit; kernel and plain against
+   exact sums at the frame decoder's shape at E=128 and 512 and at the
+   wide eval's frame shape; every bf16 call counted on the
+   tensor-core instance; two runs bit-identical; padded rows exactly
+   zero); its plan's shared memory against the built kernels' at every
+   width; time every bf16 shape (CUDA events, median of 25 after warm-up;
+   profiler device time; the plain version; the CUDA-core instance with
+   bf16 rounding; the block staged from library calls), failing unless
+   the tensor-core instance beats the CUDA-core one at the frame decoder;
 3. serve requests through ``collate_inference_batch`` ->
    ``InferenceEngine.run`` at the flagship width (config defaults, 11
    speakers, bf16) with seeded weights, both pitch transforms and both
    bucket policies, one speculation that undershoots and re-runs at the
-   full budget, with the kernels' launch counters read around it;
-   profile one request (device time by kernel, idle share); then hold a
-   small float32 request on the card against the same model on the CPU
-   (plain versions), and time the durations' blocked cumsum on the card;
+   full budget, with the kernels' launch counters read around it (every
+   K1 launch on the tensor-core instance); profile one request (device
+   time by kernel, idle share; K1's all in its tensor-core kernels); then
+   hold a small float32 request on the card against the same model on
+   the CPU (plain versions), and time the durations' blocked cumsum on
+   the card;
 4. hold the fused MRF vocoder kernel (K5) against its plain version at
    the three V1 stage shapes of a B=8, bucket-512 vocode pass (and one
    unit of each), with a control (plain without its bf16 rounding) that
@@ -40,13 +53,20 @@ result line):
    ``run_cached_to_audio`` at flagship width with a seeded V1 generator
    (a cold style, the same keys, a padding row, half new styles, an
    undershooting speculation that re-runs at 2048), with the K1/K5 launch
-   counters (every K5 launch on the tensor-core instance) and the
+   counters (every K1 and K5 launch on its tensor-core instance) and the
    prosody-encoder batch counter read around each; check that the audio
    equals ``run_cached`` -> crop -> ``vocode_mels``; profile one request
    (K5's device time all in its tensor-core kernel);
    stream one utterance through ``StreamingVocoder`` against
    ``vocode_mels``; hold a small float32 audio request on the card against
    the CPU (TF32 off);
+   then the wide ablation's inference and evaluation (``serve_wide``:
+   E=512, 4 heads of 128, C=512, bf16, depth not cut): two mel requests
+   (B=8, L=64, reference T=512, bucket 512, both pitch transforms), one
+   profiled, an audio request with the V1 generator and an eval step at
+   B=16, L=128, T=768, profiled, each with K1's counters (12 a pass or
+   batch, all tensor-core); and a small float32 wide request and eval
+   step (E=256, 2 heads of 128, C=256) on the card against the CPU;
 5. hold the training attention kernels (K2, forward and backward) against
    their plain versions at the flagship and wide training shapes (E=128
    and E=512, D=16, 64 and 128), f32 and bf16, at dropout rates 0 and
@@ -103,6 +123,15 @@ runs only the flagship training step, in a checkout of another commit
 alternating parent, this, this, parent twice, each in its own process:
 one ``AB`` line of step ms and device-busy ms per run.
 
+    python3 chip_smoke.py --ab-k1 PARENT_DIR
+    python3 chip_smoke.py --ab-serve PARENT_DIR
+
+do the same for one bf16 frame-decoder FFT block through
+``FFTBlock.forward`` (a (B, 4, 2E) FiLM tensor's slice, as the decoder
+passes it: CUDA-event ms, device ms and their difference, the host time
+the card waits for) and for one flagship mel request (host ms of 20
+requests, profiled device busy).
+
 Needs CUDA: it exits with an error when ``torch.cuda.is_available()`` is
 false. It imports nothing of JAX and nothing of ``daft_exprt_tpu``.
 """
@@ -139,21 +168,53 @@ ROOT = Path(__file__).resolve().parent
 # HBM3 bandwidth.
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 HBM_BYTES_PER_S = 3.35e12
-# kernel vs plain, max abs: f32 as tests/test_fft_block.py; bf16 7.5x
+# K1 kernel vs plain, max abs: f32 as tests/test_fft_block.py; bf16 7.5x
 # tighter than that file's bf16 bound (0.15), leaving room for summation-
-# order flips of single bf16 roundings
+# order flips of single bf16 roundings; bf16 is held by relative L2 too
+# (K1_REL_TOL)
 TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 E, C = 128, 1024
-# (name, B, T, heads, FiLM): the serving phase's K1 launches
-K1_SHAPES = [("prosody_encoder", 8, 512, 8, False),
-             ("phoneme_encoder", 8, 64, 2, True),
-             ("frame_decoder", 8, 512, 2, True),
-             ("frame_decoder_full_budget", 8, 2048, 2, True)]
-# (name, T, heads, FiLM, lengths): tiles cut by T, a row of length 0
-# (every duration zero), checked but not timed
-K1_EDGE_CASES = [("edge_T48", 48, 2, True, [48, 17, 0]),
-                 ("edge_T16_H8", 16, 8, False, [16, 5]),
-                 ("edge_T1536", 1536, 2, True, [1536, 700])]
+# the wide ablation's FFT blocks (wide_head_hparams)
+WIDE_E, WIDE_H, WIDE_C = 512, 4, 512
+# (name, B, T, E, heads, C, FiLM): the K1 launches of flagship mel and
+# audio serving (prosody encoder, phoneme encoder, frame decoder at bucket
+# 512 and at the full budget), of wide serving at the same batch, and of
+# the wide evaluation step (B=16, T=768 frames and L=128 symbols)
+K1_SHAPES = [("prosody_encoder", 8, 512, E, 8, C, False),
+             ("phoneme_encoder", 8, 64, E, 2, C, True),
+             ("frame_decoder", 8, 512, E, 2, C, True),
+             ("frame_decoder_full_budget", 8, 2048, E, 2, C, True),
+             ("wide_prosody_encoder", 8, 512, WIDE_E, WIDE_H, WIDE_C, False),
+             ("wide_phoneme_encoder", 8, 64, WIDE_E, WIDE_H, WIDE_C, True),
+             ("wide_frame_decoder", 8, 512, WIDE_E, WIDE_H, WIDE_C, True),
+             ("wide_frame_decoder_full_budget", 8, 2048, WIDE_E, WIDE_H,
+              WIDE_C, True),
+             ("wide_eval_frames", 16, 768, WIDE_E, WIDE_H, WIDE_C, True),
+             ("wide_eval_symbols", 16, 128, WIDE_E, WIDE_H, WIDE_C, True)]
+# (name, T, E, heads, C, FiLM, lengths): tiles cut by T, a row of length 0
+# (every duration zero), checked but not timed; E=256 is two heads of 128
+K1_EDGE_CASES = [("edge_T48", 48, E, 2, C, True, [48, 17, 0]),
+                 ("edge_T16_H8", 16, E, 8, C, False, [16, 5]),
+                 ("edge_T1536", 1536, E, 2, C, True, [1536, 700]),
+                 ("edge_E256_T200", 200, 256, 2, 256, True, [200, 77, 0]),
+                 ("edge_E256_T1", 1, 256, 2, 256, False, [1, 0]),
+                 ("edge_E512_T48", 48, WIDE_E, WIDE_H, WIDE_C, True,
+                  [48, 17, 0]),
+                 ("edge_E512_T300", 300, WIDE_E, WIDE_H, WIDE_C, False,
+                  [300, 129])]
+# K1 kernel vs plain at bf16, relative L2 of the whole output. Both round
+# at the same points; float32 sums in another order flip a bf16 rounding
+# by one ulp only now and then, while the control (the CUDA-core instance
+# with its rounding off, on the same bf16-rounded weights) is off by up to
+# half an ulp at every rounding point. The limit sits near the geometric
+# mean of the kernel's largest reading and the control's smallest over the
+# checked shapes on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md): ~4.1e-4
+# (E=512, where plain itself is ~4e-4 from exact sums, k1_exact) and
+# 1.22e-3 (E=128).
+K1_REL_TOL = 7e-4
+# the shapes at which kernel and plain are each held to exact sums (the
+# largest of each width, where the distances are steady)
+K1_EXACT_SHAPES = ("frame_decoder", "wide_frame_decoder", "wide_eval_frames")
 # per-symbol duration stats far below the pinned 0.12 s per phone: the
 # speculated bucket undershoots and the engine re-runs at the full budget
 LOW_DURATION_STATS = {"symbols": {s: {"dur_mean": 0.03, "dur_std": 0.005}
@@ -224,7 +285,7 @@ def device_ms(fn, reps=10, breakdown=False):
     return (None, None) if breakdown else None
 
 
-def k1_bound(lengths, B, T, dot_dtype):
+def k1_bound(lengths, B, T, dot_dtype, E=E, C=C):
     """Least time for one K1 call on these inputs: the larger of its
     FLOPs at the card's peak for the dot type (rows past a length need
     no work) and its compulsory bytes (x and out once in float32, the dot
@@ -241,37 +302,211 @@ def k1_bound(lengths, B, T, dot_dtype):
         "operations" if t_ops >= t_bytes else "bytes"
 
 
+def staged_block(block, H):
+    """The same block staged from library calls at bf16 operands (cuBLAS
+    linears, ``scaled_dot_product_attention`` with the key mask, cuDNN
+    convs, ``F.layer_norm``), on the block's bf16-rounded weights: the
+    yardstick of what K1 fuses, timed only and used nowhere in the port.
+    Returns fn(x, film, lengths)."""
+    import torch.nn.functional as F
+
+    bf = torch.bfloat16
+    a, f = block.attention, block.feed_forward
+    mha = a.multi_head_attention
+    w_in, w_out = mha.in_proj_weight.detach().to(bf), \
+        mha.out_proj.weight.detach().to(bf)
+    b_in, b_out = mha.in_proj_bias.detach().to(bf), \
+        mha.out_proj.bias.detach().float()
+    c1, c2 = f.convs["0"].conv, f.convs["2"].conv
+    w1, b1 = c1.weight.detach().to(bf), c1.bias.detach().to(bf)
+    w2, b2 = c2.weight.detach().to(bf), c2.bias.detach().float()
+    ln1, ln2 = a.layer_norm, f.layer_norm
+
+    def run(x, film, lengths):
+        B, T, E_ = x.shape
+        D = E_ // H
+        valid = torch.arange(T, device=x.device)[None, :] < lengths[:, None]
+        q, k, v = (t.view(B, T, H, D).transpose(1, 2) for t in
+                   F.linear(x.to(bf), w_in, b_in).split(E_, dim=-1))
+        ctx = F.scaled_dot_product_attention(
+            q, k, v, attn_mask=valid[:, None, None, :])
+        ctx = ctx.transpose(1, 2).reshape(B, T, E_)
+        y = F.linear(ctx, w_out).float() + b_out + x
+        y = F.layer_norm(y, (E_,), ln1.weight, ln1.bias)
+        y = torch.where(valid[..., None], y, 0.0)
+        h = F.relu(F.conv1d(y.to(bf).transpose(1, 2), w1, b1, padding=1))
+        z = F.conv1d(h, w2, padding=1).transpose(1, 2).float() + b2 + y
+        z = F.layer_norm(z, (E_,), ln2.weight, ln2.bias)
+        if film is not None:
+            z = film[:, None, :E_] * z + film[:, None, E_:]
+        return torch.where(valid[..., None], z, 0.0)
+    return run
+
+
+def k1_exact(x, w, film, lengths, H):
+    """K1's function with exact sums: the operands rounded to bf16 where
+    K1 rounds them, products and sums in float64 (the exponentials and
+    LayerNorms too)."""
+    import torch.nn.functional as F
+
+    def rnd(t):
+        return t.to(torch.bfloat16).double()
+
+    w = w._replace(**{n: getattr(w, n).double() for n in w._fields})
+    x = x.double()
+    B, T, E_ = x.shape
+    D = E_ // H
+    valid = torch.arange(T, device=x.device)[None, :] < lengths[:, None]
+    q, k, v = (t.reshape(B, T, H, D).transpose(1, 2) for t in
+               rnd(rnd(x) @ w.wqkv + w.bqkv).split(E_, dim=-1))
+    s = (q @ k.transpose(-1, -2)) / np.sqrt(D)
+    s = s.masked_fill(~valid[:, None, None, :], -np.inf)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    p = rnd(p / p.sum(-1, keepdim=True))
+    ctx = rnd((p @ v).transpose(1, 2).reshape(B, T, E_))
+
+    def ln(y, scale, bias):
+        return F.layer_norm(y, (E_,), scale, bias, eps=1e-5)
+
+    def conv(a, wk):  # SAME k=3 over rows; wk (3, in, out)
+        a = F.pad(a, (0, 0, 1, 1))
+        return a[:, :-2] @ wk[0] + a[:, 1:-1] @ wk[1] + a[:, 2:] @ wk[2]
+
+    a = torch.where(valid[..., None], ln(ctx @ w.wo + w.bo + x, w.ln1_s,
+                                         w.ln1_b), 0.0)
+    h = rnd(torch.relu(conv(rnd(a), w.w1) + w.b1))
+    y = ln(conv(h, w.w2) + w.b2 + a, w.ln2_s, w.ln2_b)
+    if film is not None:
+        y = film.double()[:, None, :E_] * y + film.double()[:, None, E_:]
+    return torch.where(valid[..., None], y, 0.0)
+
+
+K1_VARIANTS = ("shipped", "chained_sums")
+
+
+def k1_variants(gen, rng):
+    """K1's rounded sums timed against what they chose, at the frame
+    decoder's shape at both widths: each k16 term added by a rounded
+    float32 add (shipped) against the products' sums chained inside
+    mma.sync over the whole K. Each variant's CUDA-event and device ms and
+    relative L2 distance from the exact sums (k1_exact), beside plain's.
+    Timed only: no path runs the chained variant."""
+    import ctypes
+
+    from daft_exprt_tpu_torch.ops.fft_block import _tc_workspace_bytes
+
+    fn = _build.load_library("fft_block_tc").fft_block_tc_forward_variant
+    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] + \
+        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rows = []
+    for name, B, T, E_, H, C_ in (("frame_decoder", 8, 512, E, 2, C),
+                                  ("wide_frame_decoder", 8, 512, WIDE_E,
+                                   WIDE_H, WIDE_C)):
+        block = FFTBlock(E_, H, C_, 3)
+        init_parameters(block, gen)
+        block = block.cuda()
+        w = block.kernel_weights(torch.bfloat16)
+        x = _cuda(rng.standard_normal((B, T, E_)).astype(np.float32))
+        film = _cuda(np.concatenate([1 + 0.1 * rng.standard_normal((B, E_)),
+                                     0.1 * rng.standard_normal((B, E_))],
+                                    1).astype(np.float32))
+        lens = rng.integers(T // 4, T, size=B)
+        lens[0] = T
+        lengths = _cuda(lens.astype(np.int32))
+        ws = torch.empty(_tc_workspace_bytes(B, T, E_, C_, H),
+                         dtype=torch.uint8, device="cuda")
+
+        def run(variant):
+            out = torch.empty_like(x)
+            err = fn(x.data_ptr(), lengths.data_ptr(), *(
+                getattr(w, n).data_ptr() for n in w._fields), film.data_ptr(),
+                film.stride(0), ws.data_ptr(), out.data_ptr(), B, T, E_, C_, H,
+                int(variant == "shipped"),
+                torch.cuda.current_stream().cuda_stream)
+            if err != 0:
+                raise RuntimeError(f"K1 variant {variant}: CUDA error {err}")
+            return out
+
+        exact = k1_exact(x, w, film, lengths, H)
+        plain = fft_block_plain(x, w, film, lengths, num_heads=H,
+                                dot_dtype=torch.bfloat16)
+        row = {"shape": name, "B": B, "T": T, "E": E_, "C": C_,
+               "plain_exact_rel_l2": _rel_l2(plain, exact)}
+        for variant in K1_VARIANTS:
+            row[variant] = {
+                "ms": cuda_ms(lambda: run(variant)),
+                "device_ms": device_ms(lambda: run(variant)),
+                "exact_rel_l2": _rel_l2(run(variant), exact),
+                "plain_rel_l2": _rel_l2(run(variant), plain)}
+        print("K1 variants", json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
+
+
+def check_k1_plan(cases):
+    """The wrapper's plan at each checked (E, H, C) equals the built
+    kernels' own shared-memory count, for both instances: bf16 on the
+    tensor-core instance, float32 on the CUDA-core one."""
+    from daft_exprt_tpu_torch.ops.fft_block import (kernel_smem_bytes,
+                                                    plan_fft_block)
+
+    plan = {}
+    for E_, H, C_ in sorted({(c[3], c[4], c[5]) for c in cases}):
+        for dtype, instance in ((torch.bfloat16, "tensor_core"),
+                                (torch.float32, "cuda_core")):
+            mirror = plan_fft_block(768, E_, H, C_, dtype)
+            built = kernel_smem_bytes(E_, H, C_, instance)
+            if mirror.instance != instance or mirror.smem_bytes != built:
+                raise AssertionError(f"K1 plan at E={E_}, H={H}, C={C_} "
+                                     f"{dtype}: {mirror}, kernel {built}")
+            plan[f"E{E_}_H{H}_C{C_}_{instance}"] = built
+    print("K1 shared memory per instance", json.dumps(plan), flush=True)
+    return plan
+
+
 def check_k1(gen):
-    """Phase 2: K1 against its plain version at the serving shapes (timed)
-    and at edge shapes (partial tiles, D=32, a zero-length row)."""
+    """Phase 2: K1 against its plain version at the serving and wide
+    evaluation shapes (timed) and at edge shapes (partial tiles, E=256, a
+    zero-length row): float32 on the CUDA-core instance (max abs), bf16 on
+    the tensor-core instance (max abs and relative L2, beside a control --
+    the CUDA-core instance with its rounding off -- that must fail the
+    limit; every bf16 call counted as a tensor-core launch; two runs
+    bit-identical; padded rows exactly zero). Timed at bf16: CUDA events,
+    the profiler's device time, the plain version, the CUDA-core instance
+    with bf16 rounding and the block staged from library calls; fails if
+    the tensor-core instance is slower than the CUDA-core one at the frame
+    decoder's shape."""
+    from daft_exprt_tpu_torch.ops.fft_block import as_float32, fft_block_cuda
+
     rng = np.random.default_rng(0)
     cases = []
-    for name, B, T, H, with_film in K1_SHAPES:
+    for name, B, T, E_, H, C_, with_film in K1_SHAPES:
         lens = rng.integers(T // 4, T, size=B)
         lens[0], lens[-1] = T, 3  # one full row, one short row
-        cases.append((name, B, T, H, with_film, lens, True))
-    cases += [(name, len(lens), T, H, film, np.array(lens), False)
-              for name, T, H, film, lens in K1_EDGE_CASES]
-    results = []
-    for name, B, T, H, with_film, lens, timed in cases:
-        block = FFTBlock(E, H, C, 3)
+        cases.append((name, B, T, E_, H, C_, with_film, lens, True))
+    cases += [(name, len(lens), T, E_, H, C_, film, np.array(lens), False)
+              for name, T, E_, H, C_, film, lens in K1_EDGE_CASES]
+    plan = check_k1_plan(cases)
+    results, failures = [], []
+    for name, B, T, E_, H, C_, with_film, lens, timed in cases:
+        block = FFTBlock(E_, H, C_, 3)
         init_parameters(block, gen)
         with torch.no_grad():  # non-trivial biases and LN affine terms
             for p in block.parameters():
                 if p.dim() == 1:
                     p.add_(0.1 * torch.randn(p.shape, generator=gen))
         block = block.cuda()
-        x = torch.from_numpy(rng.standard_normal((B, T, E)).astype(
-            np.float32)).cuda()
+        x = _cuda(rng.standard_normal((B, T, E_)).astype(np.float32))
         film = None
         if with_film:
-            film = torch.from_numpy(np.concatenate(
-                [1 + 0.1 * rng.standard_normal((B, E)),
-                 0.1 * rng.standard_normal((B, E))], 1).astype(
-                np.float32)).cuda()
-        lengths = torch.from_numpy(lens.astype(np.int32)).cuda()
+            film = _cuda(np.concatenate(
+                [1 + 0.1 * rng.standard_normal((B, E_)),
+                 0.1 * rng.standard_normal((B, E_))], 1).astype(np.float32))
+        lengths = _cuda(lens.astype(np.int32))
         valid = torch.arange(T, device="cuda")[None, :] < lengths[:, None]
         for dot_dtype in (torch.float32, torch.bfloat16):
+            bf16 = dot_dtype == torch.bfloat16
             w = block.kernel_weights(dot_dtype)
 
             def kernel():
@@ -282,29 +517,81 @@ def check_k1(gen):
                 return fft_block_plain(x, w, film, lengths, num_heads=H,
                                        dot_dtype=dot_dtype)
 
-            out = kernel()
+            tc_before = fused_fft_block.tc_launches
+            out, again = kernel(), kernel()
             torch.cuda.synchronize()
+            tc = fused_fft_block.tc_launches - tc_before
             ref = plain()
-            if not torch.isfinite(out).all():
-                raise AssertionError(f"K1 {name} {dot_dtype}: non-finite")
-            if (out[~valid] != 0).any():
-                raise AssertionError(f"K1 {name} {dot_dtype}: padded rows "
-                                     "not exactly zero")
             err = (out - ref).abs().max().item()
-            if not err <= TOL[dot_dtype]:
-                raise AssertionError(f"K1 {name} {dot_dtype}: max abs err "
-                                     f"{err} > {TOL[dot_dtype]}")
-            row = {"shape": name, "B": B, "T": T, "H": H,
+            row = {"shape": name, "B": B, "T": T, "E": E_, "H": H, "C": C_,
                    "dtype": dtype_name(dot_dtype),
+                   "instance": "tensor_core" if bf16 else "cuda_core",
                    "lengths": lens.tolist(), "max_abs_err": err,
-                   "tol": TOL[dot_dtype]}
-            if timed:
-                bound_ms, bound_by = k1_bound(lens, B, T, dot_dtype)
-                row.update(ms=cuda_ms(kernel), plain_ms=cuda_ms(plain),
-                           bound_ms=bound_ms, bound_by=bound_by)
+                   "tol": TOL[dot_dtype],
+                   "bit_identical": bool(torch.equal(out, again))}
+            bad = []
+            if not torch.isfinite(out).all():
+                bad.append("non-finite")
+            if (out[~valid] != 0).any():
+                bad.append("padded rows not exactly zero")
+            if not err <= TOL[dot_dtype]:
+                bad.append(f"max abs err {err} > {TOL[dot_dtype]}")
+            if not row["bit_identical"]:
+                bad.append("two runs differ")
+            if tc != (2 if bf16 else 0):
+                bad.append(f"{tc} of 2 launches on the tensor-core instance")
+            if bf16:
+                w32 = as_float32(w)
+                control = fft_block_cuda(x, w32, film, lengths, num_heads=H,
+                                         dot_dtype=torch.float32)
+                row.update(rel_l2=_rel_l2(out, ref),
+                           control_rel_l2=_rel_l2(control, ref),
+                           rel_l2_limit=K1_REL_TOL)
+                if not row["rel_l2"] <= K1_REL_TOL < row["control_rel_l2"]:
+                    bad.append("relative L2 or its control")
+                if name in K1_EXACT_SHAPES:
+                    # kernel and plain sum in float32 in other orders: each
+                    # should be about as far from the exact sums
+                    exact = k1_exact(x, w, film, lengths, H)
+                    row["exact_rel_l2"] = {"kernel": _rel_l2(out, exact),
+                                           "plain": _rel_l2(ref, exact)}
+                    if not row["exact_rel_l2"]["kernel"] \
+                            <= 1.5 * row["exact_rel_l2"]["plain"]:
+                        bad.append("further from the exact sums than plain")
+            if timed and bf16:
+                def cuda_core():
+                    return fft_block_cuda(x, w32, film, lengths,
+                                          num_heads=H, dot_dtype=dot_dtype,
+                                          instance="cuda_core")
+
+                staged = staged_block(block, H)
+                row["ms"] = cuda_ms(kernel)
+                row["device_ms"] = device_ms(kernel)
+                row["host_ms"] = None if row["device_ms"] is None \
+                    else row["ms"] - row["device_ms"]
+                row["plain_ms"] = cuda_ms(plain, reps=5)
+                row["cuda_core_ms"] = cuda_ms(cuda_core)
+                row["cuda_core_device_ms"] = device_ms(cuda_core)
+                row["staged_ms"] = cuda_ms(lambda: staged(x, film, lengths))
+                row["staged_device_ms"] = device_ms(
+                    lambda: staged(x, film, lengths))
+                row["bound_ms"], row["bound_by"] = k1_bound(
+                    lens, B, T, dot_dtype, E=E_, C=C_)
+                results.append(row)
+            elif timed:  # float32: the CUDA-core instance, events only
+                row["ms"] = cuda_ms(kernel)
                 results.append(row)
             print("K1", json.dumps(row), flush=True)
-    return results
+            if bad:
+                failures.append((name, dtype_name(dot_dtype), bad))
+    if failures:
+        raise AssertionError(f"K1: {failures}")
+    head = next(r for r in results if r["shape"] == "frame_decoder"
+                and r["dtype"] == "bfloat16")
+    if not head["ms"] < head["cuda_core_ms"]:
+        raise AssertionError(f"K1's tensor-core instance is not faster than "
+                             f"its CUDA-core one at the frame decoder: {head}")
+    return results, plan
 
 
 def _cuda(a):
@@ -1297,7 +1584,7 @@ def serve(hp):
                 for p, pt, d in plan]
     for eng in engines.values():
         eng.passes = 0
-    fused_fft_block.launches = 0
+    fused_fft_block.launches = fused_fft_block.tc_launches = 0
     rows = []
     for rnd in range(2):  # round 0 warms up; round 1 is timed
         for name, pt, inputs in requests:
@@ -1317,23 +1604,45 @@ def serve(hp):
                 rows.append(row)
                 print("request", json.dumps(row), flush=True)
     launches = fused_fft_block.launches
+    tc_launches = fused_fft_block.tc_launches
     passes = sum(e.passes for e in engines.values())
-    n_blocks = sum(hp.__dict__[m]["nb_blocks"] for m in
-                   ("prosody_encoder", "phoneme_encoder", "frame_decoder"))
+    n_blocks = fft_blocks(hp)
     print(f"serving: {passes} inference passes, K1 launches {launches} "
-          f"(expected {n_blocks} x {passes})", flush=True)
-    if launches != n_blocks * passes or launches == 0:
-        raise AssertionError(f"K1 launches {launches} != "
-                             f"{n_blocks} x {passes} passes")
+          f"(expected {n_blocks} x {passes}), {tc_launches} on the "
+          "tensor-core instance", flush=True)
+    if launches != n_blocks * passes or launches == 0 \
+            or tc_launches != launches:
+        raise AssertionError(f"K1 launches {launches} ({tc_launches} "
+                             f"tensor-core) != {n_blocks} x {passes} passes")
     rerun = next(r for r in rows if r["engine"] == "speculate_rerun")
     if rerun["passes"] != 2 or rerun["bucket"] != hp.max_frames:
         raise AssertionError(f"undershooting speculation: {rerun}, expected "
                              f"a re-run at {hp.max_frames} frames")
-    return rows, launches, engines, requests
+    return rows, {"all": launches, "tensor_core": tc_launches}, engines, \
+        requests
 
 
+def fft_blocks(hp):
+    """FFT blocks of one inference pass (K1 launches)."""
+    return sum(hp.__dict__[m]["nb_blocks"] for m in
+               ("prosody_encoder", "phoneme_encoder", "frame_decoder"))
+
+
+# K1's kernels by instance (csrc/fft_block_tc.cu, csrc/fft_block.cu)
+K1_TC_KERNELS = ("qkv_tc_kernel", "attn_tc_kernel", "outproj_tc_kernel",
+                 "ln1_rows_kernel", "conv_tc_kernel", "ln2_rows_kernel")
 K1_KERNELS = ("qkv_kernel", "attention_kernel", "outproj_ln_kernel",
-              "conv_ff_kernel")
+              "conv_ff_kernel") + K1_TC_KERNELS
+K1_GROUPS = {"k1_ms": K1_KERNELS, "k1_tensor_core_ms": K1_TC_KERNELS}
+
+
+def k1_all_tensor_core(report, what):
+    """Raise unless K1's device time in a profiled run is all in its
+    tensor-core kernels."""
+    if report is not None \
+            and not 0 < report["k1_tensor_core_ms"] == report["k1_ms"]:
+        raise AssertionError(f"K1's device time in {what} is not all on "
+                             f"its tensor-core kernels: {report}")
 
 
 def profile_kernels(run, groups):
@@ -1376,15 +1685,17 @@ def profile_request(engine, inputs, pitch_transform):
     engine.run(inputs, pitch_transform, want_weights=False)
     report = profile_kernels(
         lambda: engine.run(inputs, pitch_transform, want_weights=False),
-        {"k1_ms": K1_KERNELS})
+        K1_GROUPS)
     print("profile", json.dumps(report), flush=True)
+    k1_all_tensor_core(report, "the mel request")
     return report
 
 
-def check_against_cpu():
-    """A small float32 request on the card against the same model on the
-    CPU (plain versions everywhere)."""
-    hp = flagship_hparams(compute_dtype="float32")
+def check_against_cpu(make_hp=flagship_hparams):
+    """A small float32 request of the configuration ``make_hp`` gives on
+    the card against the same model on the CPU (plain versions
+    everywhere)."""
+    hp = make_hp(compute_dtype="float32")
     rng = np.random.default_rng(2)
     inputs = make_request(hp, rng, 2, 16, 64, 1.0, "add")
     outs = []
@@ -1512,25 +1823,26 @@ def serve_audio(model, gen):
     for engine in engines.values():
         engine.films.clear()
     torch.cuda.synchronize()
-    fused_fft_block.launches = fused_mrf.launches = 0
-    fused_mrf.tc_launches = 0
+    fused_fft_block.launches = fused_fft_block.tc_launches = 0
+    fused_mrf.launches = fused_mrf.tc_launches = 0
     rows = []
     for label, engine, pt, inputs, k, want_fb in requests:
         before = (engine.passes, engine.film_batches,
-                  fused_fft_block.launches, fused_mrf.launches,
-                  fused_mrf.tc_launches)
+                  fused_fft_block.launches, fused_fft_block.tc_launches,
+                  fused_mrf.launches, fused_mrf.tc_launches)
         t0 = time.perf_counter()
         wavs, out_lens, overflow = engine.run_cached_to_audio(inputs, pt, k)
         latency = time.perf_counter() - t0
-        passes, fb, k1, k5, k5_tc = (a - b for a, b in zip(
+        passes, fb, k1, k1_tc, k5, k5_tc = (a - b for a, b in zip(
             (engine.passes, engine.film_batches, fused_fft_block.launches,
-             fused_mrf.launches, fused_mrf.tc_launches), before))
+             fused_fft_block.tc_launches, fused_mrf.launches,
+             fused_mrf.tc_launches), before))
         samples = check_wavs(wavs, out_lens, overflow, k)
         row = {"request": label, "pitch_transform": pt,
                "speculated_bucket": engine._buckets.speculate(inputs),
                "passes": passes, "prosody_encoder_batches": fb,
-               "k1_launches": k1, "k5_launches": k5,
-               "k5_tensor_core_launches": k5_tc,
+               "k1_launches": k1, "k1_tensor_core_launches": k1_tc,
+               "k5_launches": k5, "k5_tensor_core_launches": k5_tc,
                "frames": int(sum(out_lens[b] for b, key in enumerate(k)
                                  if key is not None)),
                "latency_ms": latency * 1e3,
@@ -1538,11 +1850,13 @@ def serve_audio(model, gen):
                "x_realtime": samples / SAMPLE_RATE / latency}
         print("audio request", json.dumps(row), flush=True)
         if fb != want_fb or k5 != 3 * passes or k5_tc != k5 \
-                or k1 != 8 * passes + 4 * fb:
+                or k1 != 8 * passes + 4 * fb or k1_tc != k1:
             raise AssertionError(f"audio request launches: {row}")
         rows.append(row)
     launches = {"all": fused_mrf.launches,
-                "tensor_core": fused_mrf.tc_launches}
+                "tensor_core": fused_mrf.tc_launches,
+                "k1": fused_fft_block.launches,
+                "k1_tensor_core": fused_fft_block.tc_launches}
     rerun = rows[-1]
     if rerun["passes"] != 2 or rerun["speculated_bucket"] >= hp.max_frames:
         raise AssertionError(f"undershooting speculation: {rerun}")
@@ -1582,8 +1896,9 @@ def profile_audio(engine, request):
     engine.run_cached_to_audio(inputs, pt, keys)
     report = profile_kernels(
         lambda: engine.run_cached_to_audio(inputs, pt, keys),
-        {"k1_ms": K1_KERNELS, "k5_ms": K5_KERNELS,
+        {**K1_GROUPS, "k5_ms": K5_KERNELS,
          "k5_tensor_core_ms": K5_TC_KERNELS, "cudnn_conv_ms": CUDNN_KERNELS})
+    k1_all_tensor_core(report, "the audio request")
     if report is not None:
         if not 0 < report["k5_tensor_core_ms"] == report["k5_ms"]:
             raise AssertionError("K5's device time in the audio request is "
@@ -1692,6 +2007,132 @@ def audio_against_cpu():
     return report
 
 
+def counted(fn):
+    """fn's result and the K1 launches it made: (all, tensor-core)."""
+    before = fused_fft_block.launches, fused_fft_block.tc_launches
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (fused_fft_block.launches - before[0],
+                 fused_fft_block.tc_launches - before[1])
+
+
+def serve_wide(vocoder):
+    """The wide ablation's inference and evaluation on the card
+    (``wide_head_hparams``: every FFT block at E=512, 4 heads of 128, C=512;
+    bf16, seed-0 weights, 11 speakers, depth not cut): two mel requests
+    through ``InferenceEngine.run`` (B=8, L=64, reference T=512, bucket
+    512, both pitch transforms) with one profiled, one audio request
+    through ``run_cached_to_audio`` with the seed-0 V1 generator, and
+    ``make_eval_step`` on bench's row shape (B=16, L=128, T=768), profiled.
+    K1 launches: 12 a pass (8 a cached audio pass + 4 a prosody-encoder
+    batch), 12 an eval batch, every one on the tensor-core instance."""
+    from daft_exprt_tpu_torch.training.step import make_eval_step
+
+    hp = wide_head_hparams()
+    model = DaftExprt(hp, seed=0)
+    pin_durations(model)
+    engine = InferenceEngine(model, None, hp)
+    n_blocks = fft_blocks(hp)
+    rng = np.random.default_rng(13)
+    requests = [(pt, make_request(hp, rng, 8, 64, 512, 0.25, pt))
+                for pt in ("add", "multiply")]
+    for pt, inputs in requests:  # warm-up
+        engine.run(inputs, pt, want_weights=False)
+    report = {"mel": []}
+    for pt, inputs in requests:
+        passes = engine.passes
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, (k1, k1_tc) = counted(
+            lambda: engine.run(inputs, pt, want_weights=False))
+        latency = time.perf_counter() - t0
+        T, frames = check_outputs(out, engine, 8)
+        row = {"pitch_transform": pt, "bucket": T,
+               "passes": engine.passes - passes, "frames": frames,
+               "k1_launches": k1, "k1_tensor_core_launches": k1_tc,
+               "latency_ms": latency * 1e3,
+               "frames_per_s": frames / latency}
+        print("wide request", json.dumps(row), flush=True)
+        if k1 != n_blocks * row["passes"] or k1_tc != k1 \
+                or T != SERVE_BUCKET:
+            raise AssertionError(f"wide request: {row}")
+        report["mel"].append(row)
+    report["mel_profile"] = profile_request(engine, *requests[0][::-1])
+
+    engine.attach_vocoder(vocoder)
+    inputs = make_request(hp, rng, 8, 64, 512, 0.25, "add")
+    engine.run_cached_to_audio(inputs, "add", [("warm-up", i)
+                                               for i in range(8)])
+    engine.films.clear()
+    keys = [(f"wide_{i}", i) for i in range(8)]
+    passes, batches = engine.passes, engine.film_batches
+    t0 = time.perf_counter()
+    (wavs, out_lens, overflow), (k1, k1_tc) = counted(
+        lambda: engine.run_cached_to_audio(inputs, "add", keys))
+    latency = time.perf_counter() - t0
+    samples = check_wavs(wavs, out_lens, overflow, keys)
+    passes, batches = engine.passes - passes, engine.film_batches - batches
+    report["audio"] = {"passes": passes, "prosody_encoder_batches": batches,
+                       "k1_launches": k1, "k1_tensor_core_launches": k1_tc,
+                       "latency_ms": latency * 1e3,
+                       "samples_per_s": samples / latency}
+    print("wide audio request", json.dumps(report["audio"]), flush=True)
+    if k1 != 8 * passes + 4 * batches or k1_tc != k1 or batches != 1:
+        raise AssertionError(f"wide audio request: {report['audio']}")
+
+    step = make_eval_step(model, hp)
+    batch = {k: v[0] for k, v in train_batch(
+        wide_head_hparams(batch_size=16, accumulation_steps=1), rng, 128,
+        768).items()}
+    mask = torch.ones(16, device="cuda")
+    step(batch, mask)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics, (k1, k1_tc) = counted(lambda: step(batch, mask))
+    seconds = time.perf_counter() - t0
+    metrics = {k: float(v) for k, v in metrics.items()}
+    prof = profile_kernels(lambda: step(batch, mask), K1_GROUPS)
+    report["eval"] = {"B": 16, "L": 128, "T": 768, "step_ms": seconds * 1e3,
+                      "k1_launches": k1, "k1_tensor_core_launches": k1_tc,
+                      "metrics": metrics, "profile": prof}
+    print("wide eval step", json.dumps(report["eval"]), flush=True)
+    if k1 != n_blocks or k1_tc != k1 or metrics["count"] != 16 \
+            or not all(np.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"wide eval step: {report['eval']}")
+    k1_all_tensor_core(prof, "the wide eval step")
+    return report
+
+
+# wide eval metrics card vs CPU, float32: sums over the batch in other
+# orders (the training step's loss tolerance), relative to max(1, |CPU|)
+EVAL_CPU_TOL = 1e-5
+
+
+def eval_against_cpu(make_hp):
+    """A small float32 evaluation step (B=2, L=16, T=64) of the
+    configuration ``make_hp`` gives on the card against the same step on
+    the CPU."""
+    from daft_exprt_tpu_torch.training.step import make_eval_step
+
+    hp = make_hp(compute_dtype="float32", batch_size=2, accumulation_steps=1)
+    out = {}
+    for device in ("cuda", "cpu"):
+        model = DaftExprt(hp, device=device, seed=0)
+        batch = {k: v[0] for k, v in train_batch(
+            hp, np.random.default_rng(6), 16, 64, device).items()}
+        metrics = make_eval_step(model, hp)(batch, torch.ones(2,
+                                                               device=device))
+        out[device] = {k: float(v) for k, v in metrics.items()}
+    errs = {k: abs(out["cuda"][k] - v) / max(1.0, abs(v))
+            for k, v in out["cpu"].items()}
+    report = {"card": out["cuda"], "cpu": out["cpu"], "errs": errs,
+              "tol": EVAL_CPU_TOL}
+    print("f32 eval step card vs CPU", json.dumps(report), flush=True)
+    if not all(e <= EVAL_CPU_TOL for e in errs.values()):
+        raise AssertionError(f"eval step card vs CPU: {report}")
+    return report
+
+
 K2_TC_KERNELS = ("attn_fwd_tc_kernel", "attn_bwd_dq_tc_kernel",
                  "attn_bwd_dkdv_tc_kernel")
 K2_KERNELS = ("attn_fwd_kernel", "attn_bwd_dq_kernel",
@@ -1791,8 +2232,7 @@ def train(hp, conv_ff, warmup=2, steps=5):
     seconds = time.perf_counter() - t0
     launches = {name: getattr(fn, attr)
                 for name, (fn, attr) in TRAIN_COUNTERS.items()}
-    n_blocks = sum(hp.__dict__[m]["nb_blocks"] for m in
-                   ("prosody_encoder", "phoneme_encoder", "frame_decoder"))
+    n_blocks = fft_blocks(hp)
     expect = n_blocks * hp.accumulation_steps * steps
     want = expected_launches(conv_ff, expect, tensor_core=True)
     print(f"training: launches {json.dumps(launches)} (expected "
@@ -1879,8 +2319,7 @@ def train_against_cpu(make_hp, conv_ff):
                        {n: p.grad.cpu() for n, p in model.named_parameters()})
     launches = {name: getattr(fn, attr)
                 for name, (fn, attr) in TRAIN_COUNTERS.items()}
-    n_blocks = sum(hp.__dict__[m]["nb_blocks"] for m in
-                   ("prosody_encoder", "phoneme_encoder", "frame_decoder"))
+    n_blocks = fft_blocks(hp)
     want = expected_launches(conv_ff, n_blocks, tensor_core=False)
     if launches != want:
         raise AssertionError(f"card step launches {launches}, expected "
@@ -2039,12 +2478,68 @@ print("AB", json.dumps({"step_ms": r["step_ms"], "device_busy_ms":
 """
 
 
-def ab_train(parent: str, rounds: int = 2) -> int:
+AB_K1 = """
+import json, numpy as np, torch, chip_smoke as cs
+from daft_exprt_tpu_torch.models.modules import FFTBlock, init_parameters
+cs._build.build([n for n in ("fft_block", "fft_block_tc")
+                 if (cs._build.SRC_DIR / (n + ".cu")).exists()])
+rng = np.random.default_rng(0)
+block = FFTBlock(128, 2, 1024, 3)
+init_parameters(block, torch.Generator().manual_seed(0))
+block = block.cuda()
+B, T = 8, 512
+x = torch.from_numpy(rng.standard_normal((B, T, 128)).astype(np.float32)).cuda()
+films = torch.from_numpy(np.concatenate(
+    [1 + 0.1 * rng.standard_normal((B, 4, 128)),
+     0.1 * rng.standard_normal((B, 4, 128))], 2).astype(np.float32)).cuda()
+lens = rng.integers(T // 4, T, size=B)
+lens[0] = T
+lengths = torch.from_numpy(lens.astype(np.int32)).cuda()
+with torch.no_grad():
+    def call():
+        return block(x, films[:, 1, :], lengths, torch.bfloat16)
+    ms, dev = cs.cuda_ms(call), cs.device_ms(call)
+print("AB", json.dumps({"ms": ms, "device_ms": dev, "host_ms": ms - dev}))
+"""
+AB_SERVE = """
+import json, time, numpy as np, torch, chip_smoke as cs
+cs._build.build([n for n in ("fft_block", "fft_block_tc")
+                 if (cs._build.SRC_DIR / (n + ".cu")).exists()])
+hp = cs.flagship_hparams()
+model = cs.DaftExprt(hp, seed=0)
+cs.pin_durations(model)
+engine = cs.InferenceEngine(model, None, hp, bucket_policy="measure")
+inputs = cs.make_request(hp, np.random.default_rng(1), 8, 64, 512, 0.6, "add")
+
+def run():
+    return engine.run(inputs, "add", want_weights=False)
+
+for _ in range(3):
+    run()
+ms = []
+for _ in range(20):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    ms.append((time.perf_counter() - t0) * 1e3)
+prof = cs.profile_kernels(run, {})
+print("AB", json.dumps({"request_ms_median": float(np.median(ms)),
+                        "request_ms_min": min(ms),
+                        "device_busy_ms": prof and prof["device_busy_ms"]}))
+"""
+AB_SCRIPTS = {"--ab-train": AB_TRAIN, "--ab-k1": AB_K1, "--ab-serve": AB_SERVE}
+
+
+def ab_train(parent: str, rounds: int = 2, script: str = AB_TRAIN) -> int:
     """The flagship training step (3 warm-up and 10 timed steps of
-    ``train``, then one profiled) in a checkout of another commit against
-    this one, each in a process of its own on the same card, in the order
-    parent, this, this, parent, ``rounds`` times: one line per run with
-    its step ms and profiled device-busy ms."""
+    ``train``, then one profiled), or with ``script`` AB_K1 one bf16
+    frame-decoder FFT block through ``FFTBlock.forward`` (CUDA-event ms,
+    profiler device ms and their difference, the host time the card waits
+    for), or AB_SERVE one flagship mel request (measure/add, B=8, bucket
+    512: median and least host ms of 20, profiled device busy), in a
+    checkout of another commit against this one, each in a process of its
+    own on the same card, in the order parent, this, this, parent,
+    ``rounds`` times: one line per run."""
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -2054,7 +2549,7 @@ def ab_train(parent: str, rounds: int = 2) -> int:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip())
     for name, cwd in [("parent", parent), ("this", here), ("this", here),
                       ("parent", parent)] * rounds:
-        run = subprocess.run([sys.executable, "-c", AB_TRAIN], cwd=cwd,
+        run = subprocess.run([sys.executable, "-c", script], cwd=cwd,
                              capture_output=True, text=True, timeout=900)
         lines = [ln for ln in run.stdout.splitlines() if ln.startswith("AB ")]
         if run.returncode != 0 or not lines:
@@ -2088,7 +2583,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     gen = torch.Generator().manual_seed(0)
-    k1 = check_k1(gen)
+    k1, k1_plan = check_k1(gen)
+    k1_design = k1_variants(gen, np.random.default_rng(14))
     rows, launches, engines, requests = serve(flagship_hparams())
     name, pt, inputs = requests[2]  # measure, bucket 512
     profile = profile_request(engines[name], inputs, pt)
@@ -2104,7 +2600,12 @@ def main() -> int:
     stream = stream_utterance(audio_engines["audio_rerun"], vocoder,
                               audio_requests[-1])
     audio_cpu = audio_against_cpu()
-    del vocoder, audio_engines, audio_requests
+    del audio_engines, audio_requests
+    wide_serving = serve_wide(vocoder)
+    wide_serving["card_vs_cpu_f32"] = {
+        "mel_max_abs_err": check_against_cpu(small_wide_hparams),
+        "eval": eval_against_cpu(small_wide_hparams)}
+    del vocoder
     k2_plan = check_k2_plan()
     k2 = check_k2()
     k3_plan = check_k3_plan()
@@ -2118,26 +2619,45 @@ def main() -> int:
         batch_size=16, accumulation_steps=3), "conv_ff_train_blocked")
     wide_cpu = train_against_cpu(small_wide_hparams, "conv_ff_train_blocked")
 
-    head = next(r for r in k1 if r["shape"] == "frame_decoder"
-                and r["dtype"] == "bfloat16")
+    timed = [r for r in k1 if r["dtype"] == "bfloat16"]
+    head = next(r for r in timed if r["shape"] == "frame_decoder")
+    bf16 = [r for r in k1 if "rel_l2" in r]
     entry = {
         "name": "fused_fft_block",
         "route": "cuda",
-        "source": "daft_exprt_tpu_torch/csrc/fft_block.cu",
+        "source": "daft_exprt_tpu_torch/csrc/fft_block_tc.cu",
         "replaces": "daft_exprt_tpu/ops/fft_block.py:97",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in k1
-                           if r["dtype"] == "bfloat16"),
+        "launches": launches["all"],
+        "instance": "tensor_core",
+        "launches_tensor_core": launches["tensor_core"],
+        "cuda_core_source": "daft_exprt_tpu_torch/csrc/fft_block.cu "
+                            "(float32 dots)",
+        "max_abs_err": max(r["max_abs_err"] for r in bf16),
         "max_abs_err_f32": max(r["max_abs_err"] for r in k1
                                if r["dtype"] == "float32"),
-        "ms": head["ms"], "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "rel_l2": max(r["rel_l2"] for r in bf16),
+        "control_rel_l2": min(r["control_rel_l2"] for r in bf16),
+        "rel_l2_limit": K1_REL_TOL,
+        **{k: head[k] for k in ("ms", "device_ms", "host_ms", "plain_ms",
+                                "bound_ms", "bound_by", "staged_ms",
+                                "staged_device_ms", "cuda_core_ms",
+                                "cuda_core_device_ms")},
         "library_ms": None,  # no single PyTorch call computes K1
-        "at": "frame_decoder B=8 T=512 bf16",
-        "shapes": [{k: r[k] for k in ("shape", "T", "H", "dtype",
-                                      "max_abs_err", "ms", "plain_ms",
-                                      "bound_ms", "bound_by")} for r in k1],
+        "staged": "the block staged at bf16: cuBLAS linears, "
+                  "scaled_dot_product_attention, cuDNN conv1d, layer_norm",
+        "at": "frame_decoder B=8 T=512 E=128 C=1024 bf16",
+        "shapes": [{k: r.get(k) for k in (
+            "shape", "B", "T", "E", "H", "C", "dtype", "instance",
+            "max_abs_err", "rel_l2", "control_rel_l2", "ms", "device_ms",
+            "host_ms", "plain_ms", "cuda_core_ms", "cuda_core_device_ms",
+            "staged_ms", "staged_device_ms", "bound_ms", "bound_by")}
+            for r in k1 if "ms" in r],
+        "smem_bytes": k1_plan,
+        "design_variants": k1_design,
         "serving": rows,
+        "audio_launches": {"all": k5_launches["k1"],
+                           "tensor_core": k5_launches["k1_tensor_core"]},
+        "wide": wide_serving,
         "card_vs_cpu_f32_mel_err": cpu_err,
         "durations_cumsum": cumsum,
         "profile": profile,
@@ -2198,6 +2718,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if len(sys.argv) == 3 and sys.argv[1] == "--ab-train":
-        sys.exit(ab_train(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] in AB_SCRIPTS:
+        sys.exit(ab_train(sys.argv[2], script=AB_SCRIPTS[sys.argv[1]]))
     sys.exit(main())

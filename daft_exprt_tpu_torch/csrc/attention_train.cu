@@ -71,8 +71,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_tc.cuh"
 #include "dropout_hash.cuh"
-#include "mma_bf16.cuh"
 
 namespace {
 
@@ -451,46 +451,14 @@ attn_bwd_dkdv_kernel(const In* __restrict__ q, const In* __restrict__ k,
 // -------------------------------------------------------------------
 namespace tc {
 
-constexpr int WARPS = 4, THREADS = 32 * WARPS;
-// Rows a block owns (16 per warp: query rows in the forward and dq, key
-// rows in dk-dv) and rows per streamed tile (keys, or queries in dk-dv).
-constexpr int ROWS = 16 * WARPS, TILE = 64;
-static_assert(ROWS == TILE, "owned and streamed tiles share one layout");
-
-// Shared-memory row of D bf16 padded by 16 bytes: the 8 rows one ldmatrix
-// phase reads then fall on distinct 16-byte bank groups.
-template <int D>
-__host__ __device__ constexpr int ld() { return D + 8; }
-template <int D>
-__host__ __device__ constexpr int tile_elems() { return TILE * ld<D>(); }
-
-// Dynamic shared memory of each launch (the wrapper's plan_attention
-// mirrors the largest). Forward and dq (key_smem): two stages of (K, V);
-// the block's own Q (and G) tiles wait in a stage that is not yet streamed
-// until their fragments are in registers, so that three blocks fit on an
-// SM at D=128.
-// dk-dv: K, V + 2 x (Q, G) + 2 x the query rows' terms (row max, 1 / row
-// sum, delta, dropout row term).
+// Dynamic shared memory of dk-dv (the wrapper's plan_attention mirrors
+// it, the largest of the instance's launches): K, V + 2 x (Q, G) + 2 x
+// the query rows' terms (row max, 1 / row sum, delta, dropout row term).
+// The forward's and dq's, key_smem, is in attention_tc.cuh.
 constexpr int QTERMS = 4;
-template <int D>
-constexpr size_t key_smem() { return 4 * tile_elems<D>() * sizeof(bf16); }
 template <int D>
 constexpr size_t dkdv_smem() {
   return 6 * tile_elems<D>() * sizeof(bf16) + 2 * QTERMS * TILE * sizeof(float);
-}
-
-// Rows [r0, r0 + TILE) of head h of a (T, E) bf16 matrix into a tile;
-// rows at or past T read as zero.
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int r0, int T, int E,
-                                          int h) {
-  constexpr int CH = D / 8, LD = ld<D>();  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < TILE * CH; i += THREADS) {
-    const int r = i / CH, c = i % CH;
-    const bool valid = r0 + r < T;
-    cp16(saddr(dst + r * LD + c * 8), src + (size_t)(valid ? r0 + r : 0) * E + h * D + c * 8,
-         valid);
-  }
 }
 
 // The per-row terms of queries [i0, i0 + TILE) (row max, row sum, delta
@@ -503,74 +471,6 @@ __device__ __forceinline__ void load_stats(float* dst, const float* row_max,
     const bool valid = i0 + r < T;
     const float* src = which == 0 ? row_max : which == 1 ? row_sum : delta;
     cp4(saddr(dst + i), src + (valid ? i0 + r : 0), valid);
-  }
-}
-
-// S = Q K^T for 16 rows of this warp and the 16 keys at tile row c0:
-// qf holds the warp's A fragments over D, the tile holds the keys.
-template <int D>
-__device__ __forceinline__ void scores16(float (&s)[2][4], const uint32_t (&qf)[D / 16][4],
-                                         uint32_t tile, int c0, int lane) {
-  constexpr int LD = ld<D>();
-#pragma unroll
-  for (int n = 0; n < 2; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) {
-    uint32_t b[4];
-    ldsm(b, b_addr<LD>(tile, c0, ks * 16, lane));
-    mma(s[0], qf[ks], b[0], b[1]);
-    mma(s[1], qf[ks], b[2], b[3]);
-  }
-}
-
-// acc (16 x D) += a (16 x 16) * the 16 tile rows at r0 (k runs along the
-// tile's rows: ldmatrix with transpose).
-template <int D>
-__device__ __forceinline__ void accumulate16(float (&acc)[D / 8][4], const uint32_t (&a)[4],
-                                             uint32_t tile, int r0, int lane) {
-  constexpr int LD = ld<D>();
-#pragma unroll
-  for (int dn = 0; dn < D / 16; ++dn) {
-    uint32_t b[4];
-    ldsm_t(b, a_addr<LD>(tile, r0, dn * 16, lane));
-    mma(acc[2 * dn], a, b[0], b[1]);
-    mma(acc[2 * dn + 1], a, b[2], b[3]);
-  }
-}
-
-// This warp's A fragments of rows [r0, r0 + 16) over D from a tile.
-template <int D>
-__device__ __forceinline__ void load_a(uint32_t (&f)[D / 16][4], uint32_t tile, int r0,
-                                       int lane) {
-  constexpr int LD = ld<D>();
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) ldsm(f[ks], a_addr<LD>(tile, r0, ks * 16, lane));
-}
-
-// A 16 x D f32 accumulator (rows r0 + g, r0 + g + 8) to (T, E) device
-// memory at head h, rows at or past T skipped; f32 as float2, bf16 as
-// bfloat162.
-__device__ __forceinline__ void store_pair(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-
-__device__ __forceinline__ void store_pair(bf16* p, float a, float b) {
-  *reinterpret_cast<uint32_t*>(p) = pack(a, b);
-}
-
-template <int D, typename Out>
-__device__ __forceinline__ void store_rows(Out* dst, const float (&acc)[D / 8][4], int r0,
-                                           int T, int E, int h, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = r0 + g + 8 * r;
-    if (row >= T) continue;
-    Out* p = dst + (size_t)row * E + h * D + 2 * t;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) store_pair(p + n * 8, acc[n][2 * r], acc[n][2 * r + 1]);
   }
 }
 

@@ -59,33 +59,16 @@
 
 namespace {
 
+using cftc::conv_splits;
+using cftc::conv_tiles;
+using cftc::SMS;
 using conv_ff::warp_sum;
 using tc::bf16;
 
 constexpr float LN_EPS = 1e-5f;
 constexpr int ROW_TILE = 32;  // rows of a backward row-kernel block: 8 warps x 4
-constexpr int SMS = 132;      // an H100's streaming multiprocessors
 
-int conv_tiles(int T) { return (T + cftc::BM - 1) / cftc::BM; }
 int row_tiles(int T) { return (T + ROW_TILE - 1) / ROW_TILE; }
-
-// Splits of K for a conv GEMM of N columns over K input channels: the
-// count (at most K / 128, the C blocks) that least loads the busiest SM,
-// ceil(blocks x splits / SMs) / splits, the smallest on a tie; 1 where one
-// wave of tiles already fills the card.
-int conv_splits(int B, int T, int K, int N) {
-  const long long blocks = (long long)(N / cftc::BN) * conv_tiles(T) * B;
-  int best = 1;
-  double best_load = (double)((blocks + SMS - 1) / SMS);
-  for (int s = 2; s <= K / 128; ++s) {
-    const double load = (double)((blocks * s + SMS - 1) / SMS) / s;
-    if (load < best_load) {
-      best = s;
-      best_load = load;
-    }
-  }
-  return best;
-}
 
 // Row chunks of one weight-gradient product: one wave of blocks at two a
 // SM (fewer partials to write and sum), at most one chunk of cftc::WK rows

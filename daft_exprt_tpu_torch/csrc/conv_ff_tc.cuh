@@ -1,7 +1,8 @@
 // Shifted-row GEMM cores on bf16 tensor cores for the k=3 SAME
 // convolutions of the training conv feed-forward (K3 and the C-blocked K4,
-// both in conv_ff_blocked_tc.cu; the ring also carries K5's weights in
-// mrf_vocoder_tc.cu).
+// both in conv_ff_blocked_tc.cu) and of the inference FFT block (K1,
+// fft_block_tc.cu, whose projections also run on the ring); the ring also
+// carries K5's weights in mrf_vocoder_tc.cu.
 //
 // A k=3 SAME conv over the rows of one batch row is a GEMM with K = 3 K_in:
 // output row t takes operand rows t - 1, t and t + 1 (taps d = 0, 1, 2),
@@ -53,6 +54,30 @@ __host__ __device__ constexpr size_t wgrad_smem() {
 static_assert(2 * conv_smem() + 2048 <= 228 * 1024, "two conv blocks on an SM");
 static_assert(2 * wgrad_smem() + 2048 <= 228 * 1024, "two wgrad blocks on an SM");
 
+// The conv GEMMs' row tiles of one batch row, and the splits of K for a
+// conv GEMM of N columns over K input channels: the count (at most K /
+// 128) that least loads the busiest SM, ceil(blocks x splits / SMs) /
+// splits, the smallest on a tie; 1 where one wave of tiles already fills
+// the card. Each split writes a float32 partial; the caller adds them in
+// split order (no atomics).
+constexpr int SMS = 132;  // an H100's streaming multiprocessors
+
+inline int conv_tiles(int T) { return (T + BM - 1) / BM; }
+
+inline int conv_splits(int B, int T, int K, int N) {
+  const long long blocks = (long long)(N / BN) * conv_tiles(T) * B;
+  int best = 1;
+  double best_load = (double)((blocks + SMS - 1) / SMS);
+  for (int s = 2; s <= K / 128; ++s) {
+    const double load = (double)((blocks * s + SMS - 1) / SMS) / s;
+    if (load < best_load) {
+      best = s;
+      best_load = load;
+    }
+  }
+  return best;
+}
+
 typedef float Acc[4][4][4];  // [m16 tile][n8 tile][fragment] of the warp's 64 x 32
 
 __device__ __forceinline__ void zero(Acc& acc) {
@@ -65,14 +90,21 @@ __device__ __forceinline__ void zero(Acc& acc) {
 }
 
 // The warp's 16 products of one k16 step: a[mt] the A fragments of its
-// four m16 tiles, b[nn] the B fragments of two n8 tiles each.
+// four m16 tiles, b[nn] the B fragments of two n8 tiles each; with RN each
+// k16 term is added by a rounded float32 add (tc::mma_rn).
+template <bool RN = false>
 __device__ __forceinline__ void mma_step(Acc& acc, const uint32_t (&a)[4][4],
                                          const uint32_t (&b)[2][4]) {
 #pragma unroll
   for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-      tc::mma(acc[mt][nt], a[mt], b[nt >> 1][2 * (nt & 1)], b[nt >> 1][2 * (nt & 1) + 1]);
+    for (int nt = 0; nt < 4; ++nt) {
+      const uint32_t b0 = b[nt >> 1][2 * (nt & 1)], b1 = b[nt >> 1][2 * (nt & 1) + 1];
+      if (RN)
+        tc::mma_rn(acc[mt][nt], a[mt], b0, b1);
+      else
+        tc::mma(acc[mt][nt], a[mt], b0, b1);
+    }
 }
 
 // The cp.async ring over n chunks: load(stage, i) issues chunk i's copies,
@@ -100,7 +132,8 @@ __device__ __forceinline__ void ring(bf16* smem, int n, Load load, Compute compu
 // acc = sum_d sum_k A[lo - 1 + r + d][k] W[d][k][n0 + c] over this warp's
 // rows r and columns c of the tile, k over the chunks [c0, c1) of CK
 // channels. A: the (T, K) rows of one batch row, read as zero outside
-// [0, T); W: (3, K, N). K % CK == 0, N % BN == 0.
+// [0, T); W: (3, K, N). K % CK == 0, N % BN == 0. RN: see mma_step.
+template <bool RN = false>
 __device__ __forceinline__ void conv_tile(Acc& acc, const bf16* __restrict__ A,
                                           const bf16* __restrict__ W, int lo, int T, int K,
                                           int N, int n0, bf16* smem, int c0, int c1) {
@@ -136,7 +169,7 @@ __device__ __forceinline__ void conv_tile(Acc& acc, const bf16* __restrict__ A,
         for (int nn = 0; nn < 2; ++nn)
           tc::ldsm_t(b[nn], tc::a_addr<LDN>(wt + 2 * d * CK * LDN, 16 * ks,
                                             wn * 32 + 16 * nn, lane));
-        mma_step(acc, a, b);
+        mma_step<RN>(acc, a, b);
       }
   };
   ring<CONV_X + CONV_W>(smem, c1 - c0, load, compute);

@@ -12,7 +12,10 @@
 //
 // so the (TT+2) x C hidden lives only in shared memory. Row r of a stage's
 // output reads its input rows r, r+1, r+2 (taps d = 0, 1, 2). Products
-// run on CUDA-core FMAs in f32.
+// run on CUDA-core FMAs in f32. The model width EW is a template argument
+// (default E = 128, K3's; K1 also takes 256 and 512): lane l of a warp
+// owns the E-side columns 128 j + 4 l .. + 3, and the weight slice of
+// conv_c_to_e keeps 3 x 16 x 128 floats at every width.
 
 #pragma once
 
@@ -29,10 +32,15 @@ constexpr int RG = (TT + 2) / 2;  // conv_e_to_c rows per pass (2 passes)
 constexpr int RW = TT / 8;        // conv_c_to_e rows per warp
 static_assert(TT % 8 == 0, "8 warps split the tile rows");
 
-// Shared memory of one tile: in (TT+4) x E, hidden (TT+2) x C, and the
-// 3 x KC2 x E weight slice of conv_c_to_e.
-constexpr size_t smem_floats(int C) {
-  return (size_t)(TT + 4) * E + (size_t)(TT + 2) * C + 3 * KC2 * E;
+// Channels of conv_c_to_e's weight slice at width EW (16, 8, 4).
+template <int EW = E>
+__host__ __device__ constexpr int kc2() { return KC2 * E / EW; }
+
+// Shared memory of one tile: in (TT+4) x EW, hidden (TT+2) x C, and the
+// 3 x kc2 x EW weight slice of conv_c_to_e.
+template <int EW = E>
+__host__ __device__ constexpr size_t smem_floats(int C) {
+  return (size_t)(TT + 4) * EW + (size_t)(TT + 2) * C + 3 * kc2<EW>() * EW;
 }
 
 __device__ __forceinline__ float rnd(float v, bool bf16) {
@@ -40,8 +48,8 @@ __device__ __forceinline__ float rnd(float v, bool bf16) {
 }
 
 // out[r][c] = epi(r, c0, acc) for the 4 channels c0..c0+3 a thread owns,
-// acc[i] = sum_d sum_e in[r + d][e] * w[d][e][c0 + i]; w is (3, E, C).
-template <class Epi>
+// acc[i] = sum_d sum_e in[r + d][e] * w[d][e][c0 + i]; w is (3, EW, C).
+template <int EW = E, class Epi>
 __device__ __forceinline__ void conv_e_to_c(const float* in, const float* __restrict__ w,
                                             float* out, int C, Epi epi) {
   for (int c0 = 4 * threadIdx.x; c0 < C; c0 += 4 * THREADS) {
@@ -50,14 +58,14 @@ __device__ __forceinline__ void conv_e_to_c(const float* in, const float* __rest
 #pragma unroll
       for (int r = 0; r < RG; ++r) acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.f;
       for (int d = 0; d < 3; ++d) {
-        const float* wd = w + (size_t)d * E * C + c0;
-        const float* xd = in + (r0 + d) * E;
+        const float* wd = w + (size_t)d * EW * C + c0;
+        const float* xd = in + (r0 + d) * EW;
 #pragma unroll 4
-        for (int e = 0; e < E; ++e) {
+        for (int e = 0; e < EW; ++e) {
           const float4 wv = *reinterpret_cast<const float4*>(wd + (size_t)e * C);
 #pragma unroll
           for (int r = 0; r < RG; ++r) {
-            const float a = xd[r * E + e];
+            const float a = xd[r * EW + e];
             acc[r][0] = fmaf(a, wv.x, acc[r][0]);
             acc[r][1] = fmaf(a, wv.y, acc[r][1]);
             acc[r][2] = fmaf(a, wv.z, acc[r][2]);
@@ -72,35 +80,44 @@ __device__ __forceinline__ void conv_e_to_c(const float* in, const float* __rest
   }
 }
 
-// acc[r][i] += sum_d sum_c in[warp*RW + r + d][c] * w[d][c][4*lane + i];
-// w is (3, C, E), staged through ws (3 x KC2 x E floats). Warp w owns tile
-// rows w*RW .. w*RW+RW-1 and lane l columns 4l .. 4l+3, so a row's
-// E-wide reductions stay within one warp.
+// acc[r][4 j + i] += sum_d sum_c in[warp*RW + r + d][c] * w[d][c][128 j + 4 lane + i];
+// w is (3, C, EW), staged through ws (3 x kc2 x EW floats). Warp w owns
+// tile rows w*RW .. w*RW+RW-1 and lane l columns 128 j + 4l .. + 3, so a
+// row's EW-wide reductions stay within one warp.
+template <int EW = E>
 __device__ __forceinline__ void conv_c_to_e(const float* in, const float* __restrict__ w,
-                                            float* ws, int C, float (&acc)[RW][4]) {
+                                            float* ws, int C,
+                                            float (&acc)[RW][4 * (EW / 128)]) {
+  constexpr int EV = EW / 128, K = kc2<EW>();
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 #pragma unroll
-  for (int r = 0; r < RW; ++r) acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.f;
-  for (int c0 = 0; c0 < C; c0 += KC2) {
-    for (int i = tid; i < 3 * KC2 * E / 4; i += THREADS) {
-      const int d = i / (KC2 * E / 4), rem = i % (KC2 * E / 4);
-      const int cc = rem / (E / 4), e4 = rem % (E / 4);
+  for (int r = 0; r < RW; ++r)
+#pragma unroll
+    for (int i = 0; i < 4 * EV; ++i) acc[r][i] = 0.f;
+  for (int c0 = 0; c0 < C; c0 += K) {
+    for (int i = tid; i < 3 * K * EW / 4; i += THREADS) {
+      const int d = i / (K * EW / 4), rem = i % (K * EW / 4);
+      const int cc = rem / (EW / 4), e4 = rem % (EW / 4);
       reinterpret_cast<float4*>(ws)[i] =
-          *reinterpret_cast<const float4*>(w + ((size_t)d * C + c0 + cc) * E + 4 * e4);
+          *reinterpret_cast<const float4*>(w + ((size_t)d * C + c0 + cc) * EW + 4 * e4);
     }
     __syncthreads();
 #pragma unroll
     for (int d = 0; d < 3; ++d) {
 #pragma unroll 4
-      for (int cc = 0; cc < KC2; ++cc) {
-        const float4 wv = reinterpret_cast<const float4*>(ws + (d * KC2 + cc) * E)[lane];
+      for (int cc = 0; cc < K; ++cc) {
+        const float4* wr = reinterpret_cast<const float4*>(ws + (d * K + cc) * EW);
 #pragma unroll
-        for (int r = 0; r < RW; ++r) {
-          const float a = in[(size_t)(warp * RW + r + d) * C + c0 + cc];
-          acc[r][0] = fmaf(a, wv.x, acc[r][0]);
-          acc[r][1] = fmaf(a, wv.y, acc[r][1]);
-          acc[r][2] = fmaf(a, wv.z, acc[r][2]);
-          acc[r][3] = fmaf(a, wv.w, acc[r][3]);
+        for (int j = 0; j < EV; ++j) {
+          const float4 wv = wr[32 * j + lane];
+#pragma unroll
+          for (int r = 0; r < RW; ++r) {
+            const float a = in[(size_t)(warp * RW + r + d) * C + c0 + cc];
+            acc[r][4 * j] = fmaf(a, wv.x, acc[r][4 * j]);
+            acc[r][4 * j + 1] = fmaf(a, wv.y, acc[r][4 * j + 1]);
+            acc[r][4 * j + 2] = fmaf(a, wv.z, acc[r][4 * j + 2]);
+            acc[r][4 * j + 3] = fmaf(a, wv.w, acc[r][4 * j + 3]);
+          }
         }
       }
     }

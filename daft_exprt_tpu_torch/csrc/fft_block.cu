@@ -1,4 +1,6 @@
-// Fused FFT block forward (inference) for Hopper, sm_90a.
+// Fused FFT block forward (inference) for Hopper, sm_90a: the CUDA-core
+// instance (float32 dots, and bf16 dots where the plan names it; the
+// bf16 serving path takes the tensor-core instance, fft_block_tc.cu).
 //
 // Replaces the Pallas TPU kernel daft_exprt_tpu/ops/fft_block.py:_kernel
 // (K1). For each batch row b with valid length len_b it computes
@@ -24,8 +26,9 @@
 // query row streams its keys from shared memory twice (row max and
 // denominator, then probabilities times values). Rows at or past a
 // row's length are skipped wherever their values cannot reach the
-// output. The products run on CUDA-core FMAs; tensor cores (wgmma) are
-// the next step and are not used yet.
+// output. The products run on CUDA-core FMAs: tensor cores cannot give
+// the float32 path its 2e-4 tolerance. Every kernel is templated on the
+// model width E = 128, 256 or 512 (head dims 16, 64, 128).
 //
 // Four launches on the caller's stream, no allocation:
 //   1. qkv_kernel         q/k/v projections            -> qkv  (B, T, 3E)
@@ -35,7 +38,8 @@
 //
 // Weight layouts (prepared by the Python wrapper, bf16-rounded there when
 // dot precision is bf16): wqkv (E, 3E), wo (E, E), w1 (3, E, C),
-// w2 (3, C, E), all "in x out" row-major; biases and LN params f32.
+// w2 (3, C, E), all "in x out" row-major, float32; biases and LN params
+// f32. FiLM rows are read with the caller's batch stride.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -46,7 +50,6 @@
 
 namespace {
 
-constexpr int E = 128;  // model width these kernels are written for
 constexpr float LN_EPS = 1e-5f;
 
 __device__ __forceinline__ float rnd(float v, bool bf16) {
@@ -64,6 +67,7 @@ __device__ __forceinline__ int row_length(const int* lengths, int b, int T) {
 // ---------------------------------------------------------------------
 constexpr int P_TM = 64, P_TN = 64, P_TK = 32;
 
+template <int E>
 __global__ void __launch_bounds__(256)
 qkv_kernel(const float* __restrict__ x, const int* __restrict__ lengths,
            const float* __restrict__ w, const float* __restrict__ bias,
@@ -131,18 +135,20 @@ qkv_kernel(const float* __restrict__ x, const int* __restrict__ lengths,
 //    query row, each owning 16 of its D dims; QT = 128/G query rows per
 //    128-thread block. Keys stream through shared memory in KT-row
 //    tiles, only up to the row's length (masked keys get exactly zero
-//    probability in the reference, whose max is over valid keys).
+//    probability in the reference, whose max is over valid keys); KT = 32
+//    key rows at D = 128 keeps the two tiles within 48 KB of static
+//    shared memory.
 //    Pass 1: running max m and denominator l. Pass 2: p = exp(s - m) /
 //    max(l, 1e-30), rounded, accumulated against v.
 // ---------------------------------------------------------------------
-template <int G>
+template <int G, int E>
 __global__ void __launch_bounds__(128)
 attention_kernel(const float* __restrict__ qkv,
                  const int* __restrict__ lengths, float* __restrict__ ctx,
                  int T, float scale, bool bf16) {
   constexpr int D = 16 * G;
   constexpr int QT = 128 / G;
-  constexpr int KT = 64;
+  constexpr int KT = G == 8 ? 32 : 64;
   constexpr int N = 3 * E;
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * QT;
   const int len = row_length(lengths, b, T);
@@ -248,16 +254,18 @@ attention_kernel(const float* __restrict__ qkv,
 
 // ---------------------------------------------------------------------
 // 3. attn = mask(LN1(ctx @ wo + bo + x)). Grid (ceil(T/32), B), 256
-//    threads: tile row r = tid/8, columns c8 + 8j (j < 16). Writes every
-//    row < T (zeros at or past the length), so launch 4 can read halos.
+//    threads: tile row r = tid/8, columns c8 + 8j (j < E/8); the wo slice
+//    of KC = 4096 / E rows takes 16 KB at every width. Writes every row
+//    < T (zeros at or past the length), so launch 4 can read halos.
 // ---------------------------------------------------------------------
+template <int E>
 __global__ void __launch_bounds__(256)
 outproj_ln_kernel(const float* __restrict__ ctx, const float* __restrict__ x,
                   const int* __restrict__ lengths, const float* __restrict__ wo,
                   const float* __restrict__ bo, const float* __restrict__ ln_s,
                   const float* __restrict__ ln_b, float* __restrict__ attn,
                   int T) {
-  constexpr int RT = 32, KC = 32;
+  constexpr int RT = 32, KC = 4096 / E, NJ = E / 8;
   const int b = blockIdx.y, t0 = blockIdx.x * RT;
   const int len = row_length(lengths, b, T);
   const int tid = threadIdx.x, r = tid / 8, c8 = tid % 8;
@@ -265,15 +273,15 @@ outproj_ln_kernel(const float* __restrict__ ctx, const float* __restrict__ x,
   float* dst = attn + ((size_t)b * T + t) * E;
   if (t0 >= len) {
     if (t < T)
-      for (int j = 0; j < 16; ++j) dst[c8 + 8 * j] = 0.f;
+      for (int j = 0; j < NJ; ++j) dst[c8 + 8 * j] = 0.f;
     return;
   }
 
   __shared__ float Cs[RT][KC + 1];
   __shared__ __align__(16) float Ws[KC][E];
-  float acc[16];
+  float v[NJ];
 #pragma unroll
-  for (int j = 0; j < 16; ++j) acc[j] = 0.f;
+  for (int j = 0; j < NJ; ++j) v[j] = 0.f;
 
   for (int k0 = 0; k0 < E; k0 += KC) {
     for (int i = tid; i < RT * KC; i += 256) {
@@ -292,17 +300,17 @@ outproj_ln_kernel(const float* __restrict__ ctx, const float* __restrict__ x,
     for (int k = 0; k < KC; ++k) {
       const float a = Cs[r][k];
 #pragma unroll
-      for (int j = 0; j < 16; ++j) acc[j] = fmaf(a, Ws[k][c8 + 8 * j], acc[j]);
+      for (int j = 0; j < NJ; ++j) v[j] = fmaf(a, Ws[k][c8 + 8 * j], v[j]);
     }
     __syncthreads();
   }
 
   const bool valid = t < len;
-  float v[16], sum = 0.f;
+  float sum = 0.f;
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < NJ; ++j) {
     const int n = c8 + 8 * j;
-    v[j] = valid ? acc[j] + bo[n] + x[((size_t)b * T + t) * E + n] : 0.f;
+    v[j] = valid ? v[j] + bo[n] + x[((size_t)b * T + t) * E + n] : 0.f;
     sum += v[j];
   }
 #pragma unroll
@@ -310,13 +318,13 @@ outproj_ln_kernel(const float* __restrict__ ctx, const float* __restrict__ x,
   const float mean = sum / E;
   float sq = 0.f;
 #pragma unroll
-  for (int j = 0; j < 16; ++j) sq += (v[j] - mean) * (v[j] - mean);
+  for (int j = 0; j < NJ; ++j) sq += (v[j] - mean) * (v[j] - mean);
 #pragma unroll
   for (int o = 1; o < 8; o <<= 1) sq += __shfl_xor_sync(0xffffffffu, sq, o);
   const float inv = 1.f / sqrtf(sq / E + LN_EPS);
   if (t < T) {
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < NJ; ++j) {
       const int n = c8 + 8 * j;
       dst[n] = valid ? (v[j] - mean) * inv * ln_s[n] + ln_b[n] : 0.f;
     }
@@ -331,18 +339,22 @@ outproj_ln_kernel(const float* __restrict__ ctx, const float* __restrict__ x,
 // ---------------------------------------------------------------------
 using conv_ff::TT;
 using conv_ff::RW;
+using conv_ff::warp_sum;
 
+template <int E>
 constexpr size_t conv_ff_smem_bytes(int C) {
-  return sizeof(float) * conv_ff::smem_floats(C);
+  return sizeof(float) * conv_ff::smem_floats<E>(C);
 }
 
+template <int E>
 __global__ void __launch_bounds__(256)
 conv_ff_kernel(const float* __restrict__ attn, const int* __restrict__ lengths,
                const float* __restrict__ w1, const float* __restrict__ b1,
                const float* __restrict__ w2, const float* __restrict__ b2,
                const float* __restrict__ ln_s, const float* __restrict__ ln_b,
-               const float* __restrict__ film, float* __restrict__ out, int T,
-               int C, bool bf16) {
+               const float* __restrict__ film, int film_stride,
+               float* __restrict__ out, int T, int C, bool bf16) {
+  constexpr int EV = E / 128;
   const int b = blockIdx.y, lo = blockIdx.x * TT;
   const int len = row_length(lengths, b, T);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -371,7 +383,7 @@ conv_ff_kernel(const float* __restrict__ attn, const int* __restrict__ lengths,
 
   // conv1 + b1 -> relu -> rnd. Hidden rows in [len, T) stay relu(b1 + ...)
   // as in the reference; only rows outside [0, T) are zero.
-  conv_ff::conv_e_to_c(ext, w1, hid, C, [&](int r, int c0, const float* a) {
+  conv_ff::conv_e_to_c<E>(ext, w1, hid, C, [&](int r, int c0, const float* a) {
     const int t = lo - 1 + r;
     const bool inside = t >= 0 && t < T;
     const float4 bias = *reinterpret_cast<const float4*>(b1 + c0);
@@ -385,106 +397,161 @@ conv_ff_kernel(const float* __restrict__ attn, const int* __restrict__ lengths,
   __syncthreads();
 
   // conv2: output tile row o reads hidden rows o, o+1, o+2 (taps d=0..2).
-  float acc2[RW][4];
-  conv_ff::conv_c_to_e(hid, w2, w2s, C, acc2);
+  float acc2[RW][4 * EV];
+  conv_ff::conv_c_to_e<E>(hid, w2, w2s, C, acc2);
 
-  // + b2 + residual -> LN2 -> FiLM -> mask.
-  const int n = 4 * lane;
-  const float4 bias2 = *reinterpret_cast<const float4*>(b2 + n);
-  const float4 s4 = *reinterpret_cast<const float4*>(ln_s + n);
-  const float4 o4 = *reinterpret_cast<const float4*>(ln_b + n);
-  float4 gam = make_float4(1.f, 1.f, 1.f, 1.f), bet = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (film != nullptr) {
-    gam = *reinterpret_cast<const float4*>(film + (size_t)b * 2 * E + n);
-    bet = *reinterpret_cast<const float4*>(film + (size_t)b * 2 * E + E + n);
-  }
+  // + b2 + residual -> LN2 -> FiLM -> mask; lane l owns columns
+  // 128 j + 4 l .. + 3.
+  const float* fb = film == nullptr ? nullptr : film + (size_t)b * film_stride;
 #pragma unroll
   for (int r = 0; r < RW; ++r) {
     const int t = lo + warp * RW + r;
-    float4 res = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (t < T) res = *reinterpret_cast<const float4*>(ab + (size_t)t * E + n);
-    float v[4] = {acc2[r][0] + bias2.x + res.x, acc2[r][1] + bias2.y + res.y,
-                  acc2[r][2] + bias2.z + res.z, acc2[r][3] + bias2.w + res.w};
-    float sum = v[0] + v[1] + v[2] + v[3];
+    float v[4 * EV], sum = 0.f;
 #pragma unroll
-    for (int o = 1; o < 32; o <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    const float mean = sum / E;
+    for (int j = 0; j < EV; ++j) {
+      const int n = 128 * j + 4 * lane;
+      const float4 bias2 = *reinterpret_cast<const float4*>(b2 + n);
+      float4 res = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (t < T) res = *reinterpret_cast<const float4*>(ab + (size_t)t * E + n);
+      v[4 * j] = acc2[r][4 * j] + bias2.x + res.x;
+      v[4 * j + 1] = acc2[r][4 * j + 1] + bias2.y + res.y;
+      v[4 * j + 2] = acc2[r][4 * j + 2] + bias2.z + res.z;
+      v[4 * j + 3] = acc2[r][4 * j + 3] + bias2.w + res.w;
+      sum += v[4 * j] + v[4 * j + 1] + v[4 * j + 2] + v[4 * j + 3];
+    }
+    const float mean = warp_sum(sum) / E;
     float sq = 0.f;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) sq += (v[i] - mean) * (v[i] - mean);
+    for (int i = 0; i < 4 * EV; ++i) sq += (v[i] - mean) * (v[i] - mean);
+    const float inv = 1.f / sqrtf(warp_sum(sq) / E + LN_EPS);
+    if (t >= T) continue;  // the same for the whole warp
+    const bool valid = t < len;
 #pragma unroll
-    for (int o = 1; o < 32; o <<= 1) sq += __shfl_xor_sync(0xffffffffu, sq, o);
-    const float inv = 1.f / sqrtf(sq / E + LN_EPS);
-    if (t < T) {
-      const bool valid = t < len;
+    for (int j = 0; j < EV; ++j) {
+      const int n = 128 * j + 4 * lane;
+      const float4 s4 = *reinterpret_cast<const float4*>(ln_s + n);
+      const float4 o4 = *reinterpret_cast<const float4*>(ln_b + n);
+      float4 gam = make_float4(1.f, 1.f, 1.f, 1.f), bet = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (fb != nullptr) {
+        gam = *reinterpret_cast<const float4*>(fb + n);
+        bet = *reinterpret_cast<const float4*>(fb + E + n);
+      }
       float4 y;
-      y.x = valid ? gam.x * ((v[0] - mean) * inv * s4.x + o4.x) + bet.x : 0.f;
-      y.y = valid ? gam.y * ((v[1] - mean) * inv * s4.y + o4.y) + bet.y : 0.f;
-      y.z = valid ? gam.z * ((v[2] - mean) * inv * s4.z + o4.z) + bet.z : 0.f;
-      y.w = valid ? gam.w * ((v[3] - mean) * inv * s4.w + o4.w) + bet.w : 0.f;
+      y.x = valid ? gam.x * ((v[4 * j] - mean) * inv * s4.x + o4.x) + bet.x : 0.f;
+      y.y = valid ? gam.y * ((v[4 * j + 1] - mean) * inv * s4.y + o4.y) + bet.y : 0.f;
+      y.z = valid ? gam.z * ((v[4 * j + 2] - mean) * inv * s4.z + o4.z) + bet.z : 0.f;
+      y.w = valid ? gam.w * ((v[4 * j + 3] - mean) * inv * s4.w + o4.w) + bet.w : 0.f;
       *reinterpret_cast<float4*>(ob + (size_t)t * E + n) = y;
     }
   }
 }
 
-cudaError_t launch_conv_ff(const float* attn, const int* lengths,
-                           const float* w1, const float* b1, const float* w2,
-                           const float* b2, const float* ln_s,
-                           const float* ln_b, const float* film, float* out,
-                           int B, int T, int C, bool bf16,
-                           cudaStream_t stream) {
-  const size_t smem = conv_ff_smem_bytes(C);
-  cudaError_t err = cudaFuncSetAttribute(
-      conv_ff_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  conv_ff_kernel<<<dim3((T + TT - 1) / TT, B), 256, smem, stream>>>(
-      attn, lengths, w1, b1, w2, b2, ln_s, ln_b, film, out, T, C, bf16);
-  return cudaGetLastError();
+// The kernel's dynamic shared memory limit, raised once per instance to
+// the most any call so far needed (not at every call: the serving path's
+// pace is set by the host).
+template <int E>
+cudaError_t allow_conv_ff_smem(size_t bytes) {
+  static size_t allowed = 0;
+  if (bytes <= allowed) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      conv_ff_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess) allowed = bytes;
+  return err;
 }
 
-}  // namespace
+struct Args {
+  const float *x;
+  const int* lengths;
+  const float *wqkv, *bqkv, *wo, *bo, *ln1_s, *ln1_b, *w1, *b1, *w2, *b2, *ln2_s, *ln2_b,
+      *film;
+  int film_stride;
+  float *qkv, *ctx, *attn, *out;
+  int B, T, C, H;
+  bool bf16;
+};
 
-// Runs one FFT block. All pointers are device pointers; film may be null
-// (identity FiLM). qkv (B*T*3E), ctx (B*T*E) and attn (B*T*E) are
-// scratch. Returns the first CUDA error (0 on success). The wrapper
-// checks E == 128, D = 128 / H in {16, 64}, C % 16 == 0 and C <= 1392.
-extern "C" int fft_block_forward(
-    const float* x, const int* lengths, const float* wqkv, const float* bqkv,
-    const float* wo, const float* bo, const float* ln1_s, const float* ln1_b,
-    const float* w1, const float* b1, const float* w2, const float* b2,
-    const float* ln2_s, const float* ln2_b, const float* film, float* qkv,
-    float* ctx, float* attn, float* out, int B, int T, int C, int H,
-    int round_bf16, void* stream_handle) {
-  const cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
-  const bool bf16 = round_bf16 != 0;
+template <int E>
+cudaError_t forward(const Args& a, cudaStream_t stream) {
+  const int B = a.B, T = a.T, C = a.C, D = E / a.H;
   cudaError_t err;
-
-  qkv_kernel<<<dim3((T + P_TM - 1) / P_TM, 3 * E / P_TN, B), 256, 0, stream>>>(
-      x, lengths, wqkv, bqkv, qkv, T, bf16);
+  qkv_kernel<E><<<dim3((T + P_TM - 1) / P_TM, 3 * E / P_TN, B), 256, 0, stream>>>(
+      a.x, a.lengths, a.wqkv, a.bqkv, a.qkv, T, a.bf16);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-  const int D = E / H;
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(D)));
   switch (D) {
     case 16:
-      attention_kernel<1><<<dim3((T + 127) / 128, H, B), 128, 0, stream>>>(
-          qkv, lengths, ctx, T, scale, bf16);
+      attention_kernel<1, E><<<dim3((T + 127) / 128, a.H, B), 128, 0, stream>>>(
+          a.qkv, a.lengths, a.ctx, T, scale, a.bf16);
       break;
     case 64:
-      attention_kernel<4><<<dim3((T + 31) / 32, H, B), 128, 0, stream>>>(
-          qkv, lengths, ctx, T, scale, bf16);
+      attention_kernel<4, E><<<dim3((T + 31) / 32, a.H, B), 128, 0, stream>>>(
+          a.qkv, a.lengths, a.ctx, T, scale, a.bf16);
+      break;
+    case 128:
+      attention_kernel<8, E><<<dim3((T + 15) / 16, a.H, B), 128, 0, stream>>>(
+          a.qkv, a.lengths, a.ctx, T, scale, a.bf16);
       break;
     default:
       return cudaErrorInvalidValue;
   }
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-  outproj_ln_kernel<<<dim3((T + 31) / 32, B), 256, 0, stream>>>(
-      ctx, x, lengths, wo, bo, ln1_s, ln1_b, attn, T);
+  outproj_ln_kernel<E><<<dim3((T + 31) / 32, B), 256, 0, stream>>>(
+      a.ctx, a.x, a.lengths, a.wo, a.bo, a.ln1_s, a.ln1_b, a.attn, T);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-  // One block's shared memory must hold the TT=32 tile (C <= 1392).
-  if (conv_ff_smem_bytes(C) > 227 * 1024) return cudaErrorInvalidValue;
-  return launch_conv_ff(attn, lengths, w1, b1, w2, b2, ln2_s, ln2_b, film,
-                        out, B, T, C, bf16, stream);
+  const size_t smem = conv_ff_smem_bytes<E>(C);
+  if ((err = allow_conv_ff_smem<E>(smem)) != cudaSuccess) return err;
+  conv_ff_kernel<E><<<dim3((T + TT - 1) / TT, B), 256, smem, stream>>>(
+      a.attn, a.lengths, a.w1, a.b1, a.w2, a.b2, a.ln2_s, a.ln2_b, a.film, a.film_stride,
+      a.out, T, C, a.bf16);
+  return cudaGetLastError();
+}
+
+size_t smem_bytes(int E, int C) {
+  switch (E) {
+    case 128: return conv_ff_smem_bytes<128>(C);
+    case 256: return conv_ff_smem_bytes<256>(C);
+    case 512: return conv_ff_smem_bytes<512>(C);
+    default: return 0;
+  }
+}
+
+// One block's shared memory must hold the TT=32 conv tile.
+bool takes(int B, int T, int E, int C, int H) {
+  const int D = H > 0 && E % H == 0 ? E / H : 0;
+  return B > 0 && T > 0 && smem_bytes(E, C) > 0 && (D == 16 || D == 64 || D == 128) &&
+         C > 0 && C % 16 == 0 && smem_bytes(E, C) <= 227 * 1024;
+}
+
+}  // namespace
+
+// The conv-FF launch's dynamic shared memory at width E and C channels:
+// the instance's largest, what the wrapper's plan mirrors (0 outside the
+// widths it takes).
+extern "C" long long fft_block_smem_bytes(int E, int C) { return (long long)smem_bytes(E, C); }
+
+// Runs one FFT block. All pointers are device pointers; film may be null
+// (identity FiLM), its rows film_stride floats apart. qkv (B*T*3E), ctx
+// (B*T*E) and attn (B*T*E) are scratch. Returns the first CUDA error (0
+// on success); cudaErrorInvalidValue outside E in {128, 256, 512}, D =
+// E / H in {16, 64, 128}, C % 16 == 0 within one block's shared memory.
+extern "C" int fft_block_forward(
+    const float* x, const int* lengths, const float* wqkv, const float* bqkv,
+    const float* wo, const float* bo, const float* ln1_s, const float* ln1_b,
+    const float* w1, const float* b1, const float* w2, const float* b2,
+    const float* ln2_s, const float* ln2_b, const float* film, int film_stride, float* qkv,
+    float* ctx, float* attn, float* out, int B, int T, int E, int C, int H,
+    int round_bf16, void* stream_handle) {
+  if (!takes(B, T, E, C, H)) return cudaErrorInvalidValue;
+  const Args a{x,  lengths, wqkv,  bqkv, wo,   bo,   ln1_s, ln1_b, w1,  b1, w2, b2,
+               ln2_s, ln2_b, film, film_stride, qkv, ctx, attn, out, B, T, C, H,
+               round_bf16 != 0};
+  const cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
+  switch (E) {
+    case 128: return forward<128>(a, stream);
+    case 256: return forward<256>(a, stream);
+    default: return forward<512>(a, stream);
+  }
 }

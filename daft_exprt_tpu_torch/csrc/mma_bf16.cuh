@@ -74,6 +74,19 @@ __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint3
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// c += a b with the 16 products summed from zero on the tensor cores and
+// that sum added to c by a rounded float32 add. mma.sync does not round its
+// accumulation to nearest: chained over a long K, its sums drift further
+// from the exact ones than float32 sums do; this keeps each chained term
+// short.
+__device__ __forceinline__ void mma_rn(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma(t, a, b0, b1);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) c[e] += t[e];
+}
+
 // Two floats rounded to bf16 (nearest even, as rnd()), low half first.
 __device__ __forceinline__ uint32_t pack(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);

@@ -373,8 +373,9 @@ class FFTBlock(nn.Module):
                 f.layer_norm.weight, f.layer_norm.bias)
 
     def kernel_weights(self, dot_dtype):
-        """The block's weights in K1's layout, repacked whenever a
-        parameter moved or changed in place."""
+        """The block's weights in K1's layout (bf16 dot weights for the
+        tensor-core instance), made once per weight version: repacked
+        whenever a parameter moved or changed in place."""
         params = self._params()
         key = (dot_dtype,) + tuple((p.data_ptr(), p._version) for p in params)
         if self._packed is None or self._packed[0] != key:
@@ -398,8 +399,8 @@ class FFTBlock(nn.Module):
             out = self.feed_forward.forward_train(a, film, dtype, conv_rate,
                                                   gen)
             return torch.where(valid, out, 0.0)
-        if film is not None:
-            film = film.float().contiguous()
+        if film is not None:  # a (B, blocks, 2E) slice: taken as it is
+            film = film.float()
         return fused_fft_block(x.float().contiguous(),
                                self.kernel_weights(dtype), film, lengths,
                                num_heads=self.num_heads, dot_dtype=dtype)

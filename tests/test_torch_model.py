@@ -4,7 +4,9 @@ Weights cross with ``convert.state_dict_from_jax`` from the JAX
 ``init_params`` (duration head pinned to 0.12 s per phone, so rows
 decode to tens of frames); inputs are collated from a numpy seed. Both
 run in float32 at ``tests/helpers.tiny_hparams``, and once in bfloat16
-against eager JAX with the fused FFT block (K1) forced on.
+against eager JAX with the fused FFT block (K1) forced on; inference runs
+once more at the wide ablation's structure (every FFT block at E=256, 2
+heads of 128, conv channels 256), cut to size.
 """
 
 import functools
@@ -40,14 +42,32 @@ def _hparams(**overrides):
     return jhp, HyperParams(verbose=False, **jhp.as_dict())
 
 
-@pytest.fixture(scope="module")
-def models():
-    jhp, thp = _hparams()
+def _wide_hparams():
+    """Every FFT block at E=256, 2 heads of D=128, conv channels 256, one
+    block per module: the wide ablation's structure, cut to size."""
+    wide = dict(hidden_embed_dim=256, attn_nb_heads=2, attn_dropout=0.1,
+                conv_kernel=3, conv_channels=256, conv_dropout=0.1,
+                nb_blocks=1)
+    return _hparams(prosody_encoder=wide, phoneme_encoder=wide,
+                    frame_decoder=wide)
+
+
+def _models(jhp, thp):
     jmodel = JaxDaftExprt(jhp)
     params = jax.device_get(pinned_init_params(jmodel, seed=0))
     tmodel = DaftExprt(thp, device="cpu", seed=1)
     tmodel.load_state_dict(state_dict_from_jax(params), strict=True)
     return jhp, thp, jmodel, params, tmodel
+
+
+@pytest.fixture(scope="module")
+def models():
+    return _models(*_hparams())
+
+
+@pytest.fixture(scope="module")
+def wide_models():
+    return _models(*_wide_hparams())
 
 
 def _batch(hp, pitch_transform, seed=0, B=3):
@@ -191,6 +211,25 @@ def test_inference_matches_jax(models, pitch_transform, max_frames):
     if max_frames < MAX_FRAMES:
         assert jout[1][2].any() and not jout[1][2].all()
     assert (jout[1][1] > 20).all()  # real decodes, not empty rows
+    _assert_outputs_match(tout, jout)
+
+
+def test_wide_inference_matches_jax(wide_models):
+    # K1 at the wide ablation's head dim (its plain version here), float32
+    jhp, thp, jmodel, params, tmodel = wide_models
+    inputs = _collate(jhp, thp, _batch(thp, "add", seed=5))
+    means, stds = tinputs.pitch_stats_arrays(thp)
+    jmeans, jstds = jinputs.pitch_stats_arrays(jhp)
+    jout = jax.device_get(jax.jit(lambda p, i: jmodel.inference(
+        p, i, "add", jmeans, jstds, MAX_FRAMES))(params, inputs))
+    tout = jax.tree.map(lambda t: t.numpy(), tmodel.inference(
+        [torch.from_numpy(a) for a in inputs], "add", means, stds,
+        MAX_FRAMES))
+    block = tmodel.frame_decoder.blocks[0]
+    assert block.num_heads == 2 and tuple(
+        block.attention.multi_head_attention.in_proj_weight.shape) == (768,
+                                                                       256)
+    assert (jout[1][1] > 20).all()
     _assert_outputs_match(tout, jout)
 
 

@@ -330,9 +330,8 @@ def test_optimizer_matches_optax():
     assert opt.count == 3
 
 
-def test_eval_step_matches_jax(setup):
-    s = setup
-    batch = synthetic_batch(s["jhp"], batch_size=4, seed=7)
+def _check_eval_step(s, **sizes):
+    batch = synthetic_batch(s["jhp"], batch_size=4, seed=7, **sizes)
     mask = np.array([1, 1, 0, 1], np.float32)  # drops row 2
     want = jax.jit(jstep.make_eval_step(s["jmodel"], s["jhp"]))(
         s["params"], batch, jax.random.PRNGKey(0), mask)
@@ -343,3 +342,13 @@ def test_eval_step_matches_jax(setup):
                                    atol=1e-6, err_msg=k)
     assert float(got["count"]) == 3
     assert set(INPUT_KEYS) <= set(batch)
+
+
+def test_eval_step_matches_jax(setup):
+    _check_eval_step(setup)
+
+
+def test_wide_eval_step_matches_jax(wide_setup):
+    # the no-grad forward takes K1 (its plain version here) at E=256, 2
+    # heads of 128
+    _check_eval_step(wide_setup, max_symbols=16, max_frames=64)
