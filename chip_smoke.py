@@ -72,12 +72,15 @@ result line):
    their plain versions at the flagship and wide training shapes (E=128
    and E=512, D=16, 64 and 128), f32 and bf16, at dropout rates 0 and
    0.1 (bit-equal masks; bf16 with rounding takes the tensor-core
-   instance, checked by its launch counters and its shared-memory plan
-   against the built kernel's; two bf16 backward runs bit-identical), and
+   instance, wgmma and TMA, checked by its launch counters and its
+   shared-memory plan against the built kernel's; two bf16 backward runs
+   bit-identical; its o', the forward's sum of pd v over the unrounded pd,
+   against the plain forward at float32 dots, ``out`` the control), and
    time every training shape at bf16 beside
-   ``scaled_dot_product_attention``; hold float32 q/k/v with bf16 dots
-   (the CUDA-core instance, which rounds k and q before the dq and dk
-   products) to the plain version; the same for the training conv-FF
+   ``scaled_dot_product_attention`` (``--ab-k2`` below times them against
+   another checkout's); hold float32 q/k/v with bf16 dots (the CUDA-core
+   instance, which rounds k and q before the dq and dk products) to the
+   plain version; the same for the training conv-FF
    kernels (K3; bf16 on the tensor-core instance that K4 shares, its
    plan's shared memory checked against the built kernel's, its
    counters on every bf16 call; the CUDA-core instance's plan against its
@@ -198,10 +201,11 @@ result line):
 
     python3 chip_smoke.py --ab-train PARENT_DIR
 
-runs only the flagship training step, in a checkout of another commit
-(``PARENT_DIR``, whose ``chip_smoke.py`` has ``train``) against this one,
-alternating parent, this, this, parent twice, each in its own process:
-one ``AB`` line of step ms and device-busy ms per run.
+runs only the flagship and the wide training step, in a checkout of
+another commit (``PARENT_DIR``, whose ``chip_smoke.py`` has ``train``)
+against this one, alternating parent, this, this, parent twice, each in
+its own process: one ``AB`` line of step ms, device-busy ms and K2's
+tensor-map encoding (where ``train`` reports it) per run.
 
     python3 chip_smoke.py --ab-k1 PARENT_DIR
     python3 chip_smoke.py --ab-serve PARENT_DIR
@@ -211,6 +215,13 @@ do the same for one bf16 frame-decoder FFT block through
 passes it: CUDA-event ms, device ms and their difference, the host time
 the card waits for) and for one flagship mel request (host ms of 20
 requests, profiled device busy).
+
+    python3 chip_smoke.py --ab-k2 PARENT_DIR
+
+times K2's forward and backward wrappers as ``check_k2`` does
+(CUDA-event and device ms), at every ``K2_TIMED`` shape at bf16, rates 0
+and 0.1, on the same seeded inputs in both checkouts, alternating
+parent, this, this, parent twice: one ``AB`` line a run.
 
     python3 chip_smoke.py --loop-timing
 
@@ -257,7 +268,8 @@ from daft_exprt_tpu_torch.inference.inputs import collate_inference_batch
 from daft_exprt_tpu_torch.models.daft_exprt import DaftExprt
 from daft_exprt_tpu_torch.models.modules import FFTBlock, init_parameters
 from daft_exprt_tpu_torch.ops import _build
-from daft_exprt_tpu_torch.ops.attention_train import attention_core
+from daft_exprt_tpu_torch.ops.attention_train import (attention_core,
+                                                      tc_map_stats)
 from daft_exprt_tpu_torch.ops.conv_ff_train import (conv_ff_train,
                                                     conv_ff_train_blocked)
 from daft_exprt_tpu_torch.ops.fft_block import (fft_block_plain,
@@ -829,6 +841,11 @@ BF16_REL_TOL = {("K2", "fwd"): 4e-4, ("K2", "bwd"): 8e-4,
 # the tensors each kernel's internal bf16 roundings feed; the control
 # must exceed the limit on every one of them
 K2_ROUNDED = ("out", "q", "k", "v")
+# K2's o' (tensor-core forward) against the plain forward at float32 dots,
+# relative L2: its pd is split into a bf16 part and a bf16 remainder, which
+# leaves ~2^-18 of each pd (2.4e-6 to 3.2e-6 read on an H100);
+# out, whose pd is rounded once (~1.6e-3 on the CPU), must exceed it
+K2_OPRIME_REL_TOL = 1e-5
 
 
 def _rel_l2(got, ref):
@@ -952,11 +969,23 @@ def check_k2():
                     row["control_rel_l2"] = {
                         n: _rel_l2(a, b) for n, a, b in zip(
                             K2_ROUNDED, (c_out, *c_grads), (ref, *ref_grads))}
+                    # o' (the forward's sum of pd v over the unrounded pd,
+                    # the backward's delta) against the plain forward at
+                    # float32 dots; out, whose pd is rounded, the control
+                    o_ref = attention_plain(qd, kd, vd, lengths, seeds, H,
+                                            rate, torch.float32)
+                    oprime = attention_forward_cuda(qd, kd, vd, *args)[1][1]
+                    row["oprime_rel_l2"] = _rel_l2(oprime, o_ref)
+                    row["oprime_control_rel_l2"] = _rel_l2(out, o_ref)
                 print("K2", json.dumps(row), flush=True)
                 if not (ok_f and all(ok for _, ok in errs)):
                     raise AssertionError(f"K2 disagrees with plain: {row}")
                 if bf16:
                     _bf16_verdict("K2", row["rel_l2"], row["control_rel_l2"])
+                    if not (row["oprime_rel_l2"] <= K2_OPRIME_REL_TOL
+                            < row["oprime_control_rel_l2"]):
+                        raise AssertionError(f"K2 o' (limit "
+                                             f"{K2_OPRIME_REL_TOL}): {row}")
                 if name in K2_TIMED and bf16:
                     _, stats = attention_forward_cuda(qd, kd, vd, *args)
 
@@ -2275,8 +2304,9 @@ def eval_against_cpu(make_hp):
     return report
 
 
-K2_TC_KERNELS = ("attn_fwd_tc_kernel", "attn_bwd_dq_tc_kernel",
-                 "attn_bwd_dkdv_tc_kernel")
+# K2's tensor-core instance (csrc/attention_wgmma.cuh)
+K2_TC_KERNELS = ("attn_fwd_wgmma_kernel", "attn_bwd_dq_wgmma_kernel",
+                 "attn_bwd_dkdv_wgmma_kernel")
 K2_KERNELS = ("attn_fwd_kernel", "attn_bwd_dq_kernel",
               "attn_bwd_dkdv_kernel") + K2_TC_KERNELS
 # the tensor-core instance of K3 and K4 (csrc/conv_ff_blocked_tc.cu)
@@ -2353,7 +2383,8 @@ def train(hp, conv_ff, warmup=2, steps=5):
     training kernels' launch counters read around the timed steps: K2 and
     the conv-FF kernel ``conv_ff`` (``"conv_ff_train"``, K3, or
     ``"conv_ff_train_blocked"``, K4) once per FFT block and micro-batch in
-    each direction, the other conv-FF kernel and K1 never."""
+    each direction, the other conv-FF kernel and K1 never; and the host
+    time K2's launches spent encoding their TMA tensor maps."""
     torch.cuda.reset_peak_memory_stats()
     model = DaftExprt(hp, seed=0)
     step = make_train_step(model, hp)
@@ -2368,10 +2399,12 @@ def train(hp, conv_ff, warmup=2, steps=5):
     for fn, attr in TRAIN_COUNTERS.values():
         setattr(fn, attr, 0)
     fused_fft_block.launches = 0
+    maps_before = tc_map_stats()
     t0 = time.perf_counter()
     metrics = [step(batch, gen, warmup + i + 1) for i in range(steps)]
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
+    maps, encode_ns = (a - b for a, b in zip(tc_map_stats(), maps_before))
     launches = {name: getattr(fn, attr)
                 for name, (fn, attr) in TRAIN_COUNTERS.items()}
     n_blocks = fft_blocks(hp)
@@ -2383,6 +2416,11 @@ def train(hp, conv_ff, warmup=2, steps=5):
     if launches != want or fused_fft_block.launches != 0:
         raise AssertionError(f"training launches {launches}, K1 "
                              f"{fused_fft_block.launches}")
+    # K2's tensor-core launches encode their maps anew: q/k/v forward, and
+    # q/k/v, the rounded g and the terms backward
+    if maps != 3 * launches["attention_train_forward_tensor_core"] \
+            + 5 * launches["attention_train_backward_tensor_core"]:
+        raise AssertionError(f"K2 encoded {maps} tensor maps")
     rows = [{k: float(v) for k, v in m.items()} for m in metrics]
     for r in rows:
         if not all(np.isfinite(v) for v in r.values()):
@@ -2399,7 +2437,12 @@ def train(hp, conv_ff, warmup=2, steps=5):
               "loss": [r["loss"] for r in rows],
               "grad_norm": [r["grad_norm"] for r in rows],
               "params_moved": moved,
-              "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+              # K2's TMA tensor maps, encoded on the host at every launch
+              "k2_tensor_maps": {
+                  "per_step": maps / steps,
+                  "encode_us_per_step": encode_ns / steps / 1e3,
+                  "encode_ns_per_map": encode_ns / max(maps, 1)}}
     print("training", json.dumps(report), flush=True)
     it = warmup + steps + 1
     groups = {"k2_ms": K2_KERNELS, "k2_tensor_core_ms": K2_TC_KERNELS}
@@ -5349,10 +5392,17 @@ import json, torch, chip_smoke as cs
 cs._build.build()
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
-r, _ = cs.train(cs.flagship_hparams(batch_size=16, accumulation_steps=3),
-                "conv_ff_train", warmup=3, steps=10)
-print("AB", json.dumps({"step_ms": r["step_ms"], "device_busy_ms":
-                        r["profile"] and r["profile"]["device_busy_ms"]}))
+ab = {}
+for name, hp, conv_ff in (
+        ("", cs.flagship_hparams, "conv_ff_train"),
+        ("wide_", cs.wide_head_hparams, "conv_ff_train_blocked")):
+    r, _ = cs.train(hp(batch_size=16, accumulation_steps=3), conv_ff,
+                    warmup=3, steps=10)
+    ab.update({f"{name}step_ms": r["step_ms"],
+               f"{name}device_busy_ms": r["profile"]
+               and r["profile"]["device_busy_ms"],
+               f"{name}k2_tensor_maps": r.get("k2_tensor_maps")})
+print("AB", json.dumps(ab))
 """
 
 
@@ -5405,19 +5455,57 @@ print("AB", json.dumps({"request_ms_median": float(np.median(ms)),
                         "request_ms_min": min(ms),
                         "device_busy_ms": prof and prof["device_busy_ms"]}))
 """
-AB_SCRIPTS = {"--ab-train": AB_TRAIN, "--ab-k1": AB_K1, "--ab-serve": AB_SERVE}
+# K2's forward and backward wrappers as check_k2 times them (bf16, the
+# inputs of check_k2's timed shapes from one seed, rates 0 and 0.1; the
+# backward takes what the forward returned): CUDA-event and device ms
+AB_K2 = """
+import json, numpy as np, torch, chip_smoke as cs
+from daft_exprt_tpu_torch.ops.attention_train import (
+    attention_backward_cuda, attention_forward_cuda)
+cs._build.build(["attention_train"])
+rng = np.random.default_rng(3)
+rows = []
+for name, B, T, H, lens, width in cs.K2_SHAPES:
+    if name not in cs.K2_TIMED:
+        continue
+    lens = rng.integers(T // 2, T, size=B)
+    lens[0] = T
+    lengths = cs._cuda(lens.astype(np.int32))
+    seeds = cs._cuda(rng.integers(-2 ** 31, 2 ** 31, size=B).astype(np.int32))
+    q, k, v = (cs._cuda(rng.standard_normal((B, T, width)).astype(
+        np.float32)).to(torch.bfloat16) for _ in range(3))
+    g = cs._cuda(rng.standard_normal((B, T, width)).astype(np.float32))
+    for rate in cs.RATES:
+        args = (lengths, seeds, H, rate, torch.bfloat16)
+        saved = attention_forward_cuda(q, k, v, *args)[1]
+
+        def fwd():
+            return attention_forward_cuda(q, k, v, *args)
+
+        def bwd():
+            return attention_backward_cuda(q, k, v, g, lengths, seeds, saved,
+                                           H, rate, torch.bfloat16)
+        rows.append({"shape": name, "rate": rate, "fwd_ms": cs.cuda_ms(fwd),
+                     "bwd_ms": cs.cuda_ms(bwd),
+                     "fwd_device_ms": cs.device_ms(fwd),
+                     "bwd_device_ms": cs.device_ms(bwd)})
+print("AB", json.dumps(rows))
+"""
+AB_SCRIPTS = {"--ab-train": AB_TRAIN, "--ab-k1": AB_K1, "--ab-serve": AB_SERVE,
+              "--ab-k2": AB_K2}
 
 
 def ab_train(parent: str, rounds: int = 2, script: str = AB_TRAIN) -> int:
-    """The flagship training step (3 warm-up and 10 timed steps of
-    ``train``, then one profiled), or with ``script`` AB_K1 one bf16
+    """The flagship and the wide training step (3 warm-up and 10 timed
+    steps of ``train`` each, then one profiled), or with ``script`` AB_K1 one bf16
     frame-decoder FFT block through ``FFTBlock.forward`` (CUDA-event ms,
     profiler device ms and their difference, the host time the card waits
     for), or AB_SERVE one flagship mel request (measure/add, B=8, bucket
-    512: median and least host ms of 20, profiled device busy), in a
-    checkout of another commit against this one, each in a process of its
-    own on the same card, in the order parent, this, this, parent,
-    ``rounds`` times: one line per run."""
+    512: median and least host ms of 20, profiled device busy), or AB_K2
+    K2's forward and backward wrappers at every timed shape and rate
+    (CUDA-event and device ms), in a checkout of another commit against
+    this one, each in a process of its own on the same card, in the order
+    parent, this, this, parent, ``rounds`` times: one line per run."""
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -5447,7 +5535,8 @@ def main(mode: str | None = None) -> int:
           flush=True)
     for log in sorted(_build.BUILD_DIR.glob("*.log")):
         for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            # C7515: ptxas serialized a kernel's wgmma products
+            if "registers" in line or "spill" in line or "C7515" in line:
                 print(f"ptxas {log.stem}: {line.strip()}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

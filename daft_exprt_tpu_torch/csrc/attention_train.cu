@@ -44,34 +44,30 @@
 // would round exp(s - m_running) instead of the normalised, dropped
 // probability that the Pallas kernel rounds) and leaves the row max and
 // sum (B, H, T) f32 for the backward; the backward is two launches that
-// recompute P from q, k and those stats: one per query tile (delta, then
-// dq), one per key tile (dk and dv, streaming query tiles).
+// recompute P from q, k and those stats: one per query tile (dq), one per
+// key tile (dk and dv, streaming query tiles).
 //
 // Two instances, chosen by dtype (the wrapper's plan_attention mirrors
 // the choice and the shared-memory bytes):
-// - bf16 I/O with bf16 rounding, the training path: tensor cores (the tc
-//   namespace below). Every product's operands are bf16 values at the
-//   points the Pallas kernel rounds them, and every product accumulates in
-//   f32, so mma.sync m16n8k16 bf16 -> f32 computes the same products; only
-//   the order of the f32 sums changes. A block of 4 warps owns 64 query
-//   rows (forward, dq) or 64 key rows (dk-dv), 16 per warp; S, P and dP
-//   stay in accumulator fragments, re-packed as the A operand of the next
-//   product; the streamed 64-row tiles are bf16 in dynamic shared memory,
-//   double-buffered with cp.async, rows padded by 16 bytes so that
-//   ldmatrix is free of bank conflicts. mma.sync rather than wgmma: per
-//   score, the exp, division, mask and dropout hash on the CUDA cores
-//   weigh as much as the 2 D FLOPs of each product at D <= 128.
+// - bf16 I/O with bf16 rounding, the training path: tensor cores,
+//   attention_wgmma.cuh (wgmma and TMA; its header says how). Every
+//   product's operands are bf16 values at the points the Pallas kernel
+//   rounds them, and every product accumulates in f32, so the tensor cores
+//   compute the same products; only the order of the f32 sums changes.
+//   The forward also leaves o' = sum_j pd_ij v_j (B, T, E) f32 with the
+//   unrounded pd, from which the backward takes delta_i = rnd(g_i) . o'_i
+//   without a pass over the keys.
 // - f32 I/O, and bf16 I/O with rounding off (the control of the bf16
 //   limits): CUDA-core FMAs over f32 tiles (tensor cores cannot give the
 //   f32 path its 1e-5 tolerance). G = D / 16 lanes share a row, 128 / G
-//   rows per 128-thread block.
+//   rows per 128-thread block; the dq launch takes delta in a first pass.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "attention_tc.cuh"
+#include "attention_wgmma.cuh"
 #include "dropout_hash.cuh"
 
 namespace {
@@ -85,12 +81,6 @@ __host__ __device__ constexpr int rows_per_tile() { return G == 8 ? 32 : 64; }
 __device__ __forceinline__ float rnd(float v, bool bf16) {
   return bf16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
 }
-
-struct Dropout {
-  bool on;            // rate > 0
-  uint32_t threshold; // keep iff bits >= threshold
-  float inv_keep;     // 1 / (1 - rate), as the JAX kernels multiply
-};
 
 // G lanes share one row; lane g owns dims g*16 .. g*16+15 of the head.
 template <int G>
@@ -170,12 +160,6 @@ __device__ __forceinline__ void load_rows(float (*dst)[D], const In* src, int r0
     }
     reinterpret_cast<float4*>(dst[j])[c] = v;
   }
-}
-
-__device__ __forceinline__ int key_count(const int* lengths, int b, int T, bool* uniform) {
-  const int n = lengths[b];
-  *uniform = n <= 0;
-  return n <= 0 ? T : (n > T ? T : n);
 }
 
 // -------------------------------------------------------------------
@@ -446,555 +430,6 @@ attn_bwd_dkdv_kernel(const In* __restrict__ q, const In* __restrict__ k,
   }
 }
 
-// -------------------------------------------------------------------
-// Tensor-core instance: bf16 q/k/v, bf16 rounding at the Pallas points.
-// -------------------------------------------------------------------
-namespace tc {
-
-// Dynamic shared memory of dk-dv (the wrapper's plan_attention mirrors
-// it, the largest of the instance's launches): K, V + 2 x (Q, G) + 2 x
-// the query rows' terms (row max, 1 / row sum, delta, dropout row term).
-// The forward's and dq's, key_smem, is in attention_tc.cuh.
-constexpr int QTERMS = 4;
-template <int D>
-constexpr size_t dkdv_smem() {
-  return 6 * tile_elems<D>() * sizeof(bf16) + 2 * QTERMS * TILE * sizeof(float);
-}
-
-// The per-row terms of queries [i0, i0 + TILE) (row max, row sum, delta
-// of one (b, h)) into dst[0..3][TILE]; rows past T read as zero.
-__device__ __forceinline__ void load_stats(float* dst, const float* row_max,
-                                           const float* row_sum, const float* delta,
-                                           int i0, int T) {
-  for (int i = threadIdx.x; i < 3 * TILE; i += THREADS) {
-    const int which = i / TILE, r = i % TILE;
-    const bool valid = i0 + r < T;
-    const float* src = which == 0 ? row_max : which == 1 ? row_sum : delta;
-    cp4(saddr(dst + i), src + (valid ? i0 + r : 0), valid);
-  }
-}
-
-// -------------------------------------------------------------------
-// Forward. Grid (ceil(T/64), H, B), 128 threads; warp w owns query rows
-// q0 + 16 w .. + 15. Pass 1: row max and sum over key tiles of 64; pass
-// 2: P, dropout, rounding, PV. Key tiles past the length are not read.
-// -------------------------------------------------------------------
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-attn_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, const int* __restrict__ lengths,
-                   const int* __restrict__ seeds, float* __restrict__ out,
-                   float* __restrict__ row_max, float* __restrict__ row_sum, int T, int E,
-                   int tq, float scale, Dropout drop) {
-  constexpr int TE = tile_elems<D>();
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);  // two stages
-  bf16* Vs = Ks + 2 * TE;                      // two stages
-  bf16* Qs = Vs;  // until pass 2 streams V, which pass 1 does not read
-  const int H = E / D, b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * ROWS;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, t = lane & 3;
-  const int r0 = q0 + 16 * warp;  // the warp's first row; this lane's: + g, + g + 8
-  bool uniform;
-  const int nkeys = key_count(lengths, b, T, &uniform);
-  const int ntiles = (nkeys + TILE - 1) / TILE;
-  const size_t base = (size_t)b * T * E;
-  const bf16 *qb = q + base, *kb = k + base, *vb = v + base;
-
-  load_tile<D>(Qs, qb, q0, T, E, h);
-  load_tile<D>(Ks, kb, 0, T, E, h);
-  cp_commit();
-
-  uint32_t qf[D / 16][4];
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  for (int j = 0; j < ntiles; ++j) {
-    if (j + 1 < ntiles) load_tile<D>(Ks + ((j + 1) & 1) * TE, kb, (j + 1) * TILE, T, E, h);
-    cp_commit();
-    cp_wait_one();
-    __syncthreads();
-    if (j == 0) load_a<D>(qf, saddr(Qs), 16 * warp, lane);
-    const uint32_t kt = saddr(Ks + (j & 1) * TE);
-    float s[TILE / 16][2][4];
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int c = 0; c < TILE / 16; ++c) {
-      scores16<D>(s[c], qf, kt, 16 * c, lane);
-#pragma unroll
-      for (int n = 0; n < 2; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = j * TILE + 16 * c + 8 * n + 2 * t + (e & 1);
-          const float x = col < nkeys ? (uniform ? 0.f : s[c][n][e] * scale) : -INFINITY;
-          s[c][n][e] = x;
-          mx[e >> 1] = fmaxf(mx[e >> 1], x);
-        }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {  // m stays -inf while every column was masked
-      l[r] = mx[r] == -INFINITY ? 0.f : l[r] * expf(m[r] - mx[r]);
-      m[r] = mx[r];
-    }
-#pragma unroll
-    for (int c = 0; c < TILE / 16; ++c)
-#pragma unroll
-      for (int n = 0; n < 2; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float x = expf(s[c][n][e] - m[e >> 1]);
-          l[e >> 1] += s[c][n][e] == -INFINITY ? 0.f : x;
-        }
-    __syncthreads();
-  }
-  // The four lanes of a quad hold disjoint columns of the same two rows.
-#pragma unroll
-  for (int r = 0; r < 2; ++r)
-#pragma unroll
-    for (int o = 1; o < 4; o <<= 1) {
-      const float mo = __shfl_xor_sync(0xffffffffu, m[r], o);
-      const float lo = __shfl_xor_sync(0xffffffffu, l[r], o);
-      const float mn = fmaxf(m[r], mo);
-      l[r] = (m[r] == -INFINITY ? 0.f : l[r] * expf(m[r] - mn)) +
-             (mo == -INFINITY ? 0.f : lo * expf(mo - mn));
-      m[r] = mn;
-    }
-
-  load_tile<D>(Ks, kb, 0, T, E, h);
-  load_tile<D>(Vs, vb, 0, T, E, h);
-  cp_commit();
-  const uint32_t seed = (uint32_t)seeds[b];
-  float inv_l[2];
-  uint32_t rowterm[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = r0 + (lane >> 2) + 8 * r;
-    inv_l[r] = 1.f / fmaxf(l[r], 1e-30f);
-    rowterm[r] = dropout_row(seed, (uint32_t)(h * (T / tq) + row / tq), (uint32_t)row);
-  }
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  for (int j = 0; j < ntiles; ++j) {
-    if (j + 1 < ntiles) {
-      load_tile<D>(Ks + ((j + 1) & 1) * TE, kb, (j + 1) * TILE, T, E, h);
-      load_tile<D>(Vs + ((j + 1) & 1) * TE, vb, (j + 1) * TILE, T, E, h);
-    }
-    cp_commit();
-    cp_wait_one();
-    __syncthreads();
-    const uint32_t kt = saddr(Ks + (j & 1) * TE), vt = saddr(Vs + (j & 1) * TE);
-#pragma unroll
-    for (int c = 0; c < TILE / 16; ++c) {
-      const int k0 = j * TILE + 16 * c;
-      float s[2][4];
-      scores16<D>(s, qf, kt, 16 * c, lane);
-#pragma unroll
-      for (int n = 0; n < 2; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = k0 + 8 * n + 2 * t + (e & 1), r = e >> 1;
-          float p = expf((uniform ? 0.f : s[n][e] * scale) - m[r]) * inv_l[r];
-          if (drop.on)
-            p = dropout_mix(rowterm[r] + dropout_col(col)) >= drop.threshold
-                    ? p * drop.inv_keep
-                    : 0.f;
-          s[n][e] = col < nkeys ? p : 0.f;  // a select: no branch in the tile
-        }
-      uint32_t a[4];
-      acc_to_a(a, s[0], s[1]);  // rnd(pd)
-      accumulate16<D>(acc, a, vt, 16 * c, lane);
-    }
-    __syncthreads();
-  }
-  store_rows<D>(out + base, acc, r0, T, E, h, lane);
-  if (t == 0) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = r0 + (lane >> 2) + 8 * r;
-      if (row < T) {
-        row_max[((size_t)b * H + h) * T + row] = m[r];
-        row_sum[((size_t)b * H + h) * T + row] = l[r];
-      }
-    }
-  }
-}
-
-// -------------------------------------------------------------------
-// Backward 1: delta and dq. Grid and rows as the forward; gr is the
-// cotangent already rounded to bf16 (the wrapper's one conversion).
-// Pass 1: delta_i = sum_j dp_ij p_ij; pass 2: ds, dq += ds K.
-// -------------------------------------------------------------------
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-attn_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, const bf16* __restrict__ gr,
-                      const int* __restrict__ lengths, const int* __restrict__ seeds,
-                      const float* __restrict__ row_max, const float* __restrict__ row_sum,
-                      float* __restrict__ delta, bf16* __restrict__ dq, int T, int E, int tq,
-                      float scale, Dropout drop) {
-  constexpr int TE = tile_elems<D>();
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);  // two stages
-  bf16* Vs = Ks + 2 * TE;                      // two stages
-  bf16 *Qs = Ks + TE, *Gs = Vs + TE;  // in stage 1 until the fragments are read
-  const int H = E / D, b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * ROWS;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, t = lane & 3;
-  const int r0 = q0 + 16 * warp;
-  bool uniform;
-  const int nkeys = key_count(lengths, b, T, &uniform);
-  const int ntiles = (nkeys + TILE - 1) / TILE;
-  const size_t base = (size_t)b * T * E, stat = ((size_t)b * H + h) * T;
-  const bf16 *kb = k + base, *vb = v + base;
-
-  load_tile<D>(Qs, q + base, q0, T, E, h);
-  load_tile<D>(Gs, gr + base, q0, T, E, h);
-  load_tile<D>(Ks, kb, 0, T, E, h);
-  load_tile<D>(Vs, vb, 0, T, E, h);
-  cp_commit();
-  uint32_t qf[D / 16][4], gf[D / 16][4];
-  cp_wait_all();
-  __syncthreads();
-  load_a<D>(qf, saddr(Qs), 16 * warp, lane);
-  load_a<D>(gf, saddr(Gs), 16 * warp, lane);
-  __syncthreads();  // stage 1 is free for key tile 1
-
-  const uint32_t seed = (uint32_t)seeds[b];
-  float m[2], inv_l[2];
-  uint32_t rowterm[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = r0 + (lane >> 2) + 8 * r;
-    m[r] = row < T ? row_max[stat + row] : 0.f;
-    inv_l[r] = row < T ? 1.f / fmaxf(row_sum[stat + row], 1e-30f) : 1.f;
-    rowterm[r] = dropout_row(seed, (uint32_t)(h * (T / tq) + row / tq), (uint32_t)row);
-  }
-
-  // p (undropped) and dp (dropped) of the 16 keys at tile row c0.
-  auto p_dp = [&](float (&s)[2][4], float (&dp)[2][4], uint32_t kt, uint32_t vt, int c0,
-                  int k0) {
-    scores16<D>(s, qf, kt, c0, lane);
-    scores16<D>(dp, gf, vt, c0, lane);
-#pragma unroll
-    for (int n = 0; n < 2; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + 8 * n + 2 * t + (e & 1), r = e >> 1;
-        const float p = expf((uniform ? 0.f : s[n][e] * scale) - m[r]) * inv_l[r];
-        float d = dp[n][e];
-        if (drop.on)
-          d = dropout_mix(rowterm[r] + dropout_col(col)) >= drop.threshold
-                  ? d * drop.inv_keep
-                  : 0.f;
-        s[n][e] = col < nkeys ? p : 0.f;
-        dp[n][e] = col < nkeys ? d : 0.f;
-      }
-  };
-
-  float dsum[2] = {0.f, 0.f};
-  for (int j = 0; j < ntiles; ++j) {
-    if (j + 1 < ntiles) {
-      load_tile<D>(Ks + ((j + 1) & 1) * TE, kb, (j + 1) * TILE, T, E, h);
-      load_tile<D>(Vs + ((j + 1) & 1) * TE, vb, (j + 1) * TILE, T, E, h);
-    }
-    cp_commit();
-    cp_wait_one();
-    __syncthreads();
-    const uint32_t kt = saddr(Ks + (j & 1) * TE), vt = saddr(Vs + (j & 1) * TE);
-#pragma unroll
-    for (int c = 0; c < TILE / 16; ++c) {
-      float s[2][4], dp[2][4];
-      p_dp(s, dp, kt, vt, 16 * c, j * TILE + 16 * c);
-#pragma unroll
-      for (int n = 0; n < 2; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) dsum[e >> 1] = fmaf(dp[n][e], s[n][e], dsum[e >> 1]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    dsum[r] += __shfl_xor_sync(0xffffffffu, dsum[r], 1);
-    dsum[r] += __shfl_xor_sync(0xffffffffu, dsum[r], 2);
-  }
-
-  load_tile<D>(Ks, kb, 0, T, E, h);
-  load_tile<D>(Vs, vb, 0, T, E, h);
-  cp_commit();
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  for (int j = 0; j < ntiles; ++j) {
-    if (j + 1 < ntiles) {
-      load_tile<D>(Ks + ((j + 1) & 1) * TE, kb, (j + 1) * TILE, T, E, h);
-      load_tile<D>(Vs + ((j + 1) & 1) * TE, vb, (j + 1) * TILE, T, E, h);
-    }
-    cp_commit();
-    cp_wait_one();
-    __syncthreads();
-    const uint32_t kt = saddr(Ks + (j & 1) * TE), vt = saddr(Vs + (j & 1) * TE);
-#pragma unroll
-    for (int c = 0; c < TILE / 16; ++c) {
-      float s[2][4], dp[2][4];
-      p_dp(s, dp, kt, vt, 16 * c, j * TILE + 16 * c);
-#pragma unroll
-      for (int n = 0; n < 2; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] = s[n][e] * (dp[n][e] - dsum[e >> 1]) * scale;
-      uint32_t a[4];
-      acc_to_a(a, s[0], s[1]);  // ds = rnd(p (dp - delta) / sqrt(D))
-      accumulate16<D>(acc, a, kt, 16 * c, lane);
-    }
-    __syncthreads();
-  }
-  store_rows<D>(dq + base, acc, r0, T, E, h, lane);
-  if (t == 0) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = r0 + (lane >> 2) + 8 * r;
-      if (row < T) delta[stat + row] = dsum[r];
-    }
-  }
-}
-
-// -------------------------------------------------------------------
-// Backward 2: dk and dv. Grid (ceil(T/64), H, B), 128 threads; warp w owns
-// key rows k0 + 16 w .. + 15 and works on the transposed products: S^T =
-// K Q^T and dP^T = V G^T per 16 queries, then dv += rnd(pd)^T G and dk +=
-// ds^T Q. Query tiles of 64 (with their row max, sum and delta) stream
-// through shared memory.
-// -------------------------------------------------------------------
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-attn_bwd_dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, const bf16* __restrict__ gr,
-                        const int* __restrict__ lengths, const int* __restrict__ seeds,
-                        const float* __restrict__ row_max, const float* __restrict__ row_sum,
-                        const float* __restrict__ delta, bf16* __restrict__ dk,
-                        bf16* __restrict__ dv, int T, int E, int tq, float scale,
-                        Dropout drop) {
-  constexpr int TE = tile_elems<D>(), LD = ld<D>();
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + TE;
-  bf16* Qs = Vs + TE;      // two stages
-  bf16* Gs = Qs + 2 * TE;  // two stages
-  float* St = reinterpret_cast<float*>(Gs + 2 * TE);  // two stages of [QTERMS][TILE]
-  const int H = E / D, b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * ROWS;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
-  const int kw = k0 + 16 * warp;  // the warp's first key
-  bool uniform;
-  const int nkeys = key_count(lengths, b, T, &uniform);
-  const size_t base = (size_t)b * T * E, stat = ((size_t)b * H + h) * T;
-
-  float dka[D / 8][4], dva[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
-  // Keys at or past the count have zero probability for every query:
-  // their gradients are zero.
-  if (k0 >= nkeys) {
-    store_rows<D>(dk + base, dka, kw, T, E, h, lane);
-    store_rows<D>(dv + base, dva, kw, T, E, h, lane);
-    return;
-  }
-
-  const bf16 *qb = q + base, *gb = gr + base;
-  load_tile<D>(Ks, k + base, k0, T, E, h);
-  load_tile<D>(Vs, v + base, k0, T, E, h);
-  load_tile<D>(Qs, qb, 0, T, E, h);
-  load_tile<D>(Gs, gb, 0, T, E, h);
-  load_stats(St, row_max + stat, row_sum + stat, delta + stat, 0, T);  // stage 0
-  cp_commit();
-
-  const uint32_t seed = (uint32_t)seeds[b];
-  const int tiles_per_head = T / tq;
-  const bool warp_live = kw < nkeys;
-  bool key_live[2];
-  uint32_t keyterm[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    key_live[r] = kw + g + 8 * r < nkeys;
-    keyterm[r] = dropout_col((uint32_t)(kw + g + 8 * r));
-  }
-  const uint32_t kt = saddr(Ks), vt = saddr(Vs);
-  const int nq = (T + TILE - 1) / TILE;
-  for (int i = 0; i < nq; ++i) {
-    if (i + 1 < nq) {
-      const int st = (i + 1) & 1;
-      load_tile<D>(Qs + st * TE, qb, (i + 1) * TILE, T, E, h);
-      load_tile<D>(Gs + st * TE, gb, (i + 1) * TILE, T, E, h);
-      load_stats(St + st * QTERMS * TILE, row_max + stat, row_sum + stat, delta + stat,
-                 (i + 1) * TILE, T);
-    }
-    cp_commit();
-    cp_wait_one();
-    __syncthreads();
-    const uint32_t qt = saddr(Qs + (i & 1) * TE), gt = saddr(Gs + (i & 1) * TE);
-    float* S = St + (i & 1) * QTERMS * TILE;
-    uint32_t* R = reinterpret_cast<uint32_t*>(S + 3 * TILE);
-    // once per query of the tile: 1 / row sum, and the dropout hash's row term
-    if (threadIdx.x < TILE) {
-      const int row = i * TILE + threadIdx.x;
-      S[TILE + threadIdx.x] = 1.f / fmaxf(S[TILE + threadIdx.x], 1e-30f);
-      R[threadIdx.x] =
-          dropout_row(seed, (uint32_t)(h * tiles_per_head + row / tq), (uint32_t)row);
-    }
-    __syncthreads();
-    if (warp_live) {
-#pragma unroll
-      for (int c = 0; c < TILE / 16; ++c) {
-        float s[2][4], dp[2][4];
-#pragma unroll
-        for (int n = 0; n < 2; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-        for (int ks = 0; ks < D / 16; ++ks) {
-          uint32_t a[4], bq[4];
-          ldsm(a, a_addr<LD>(kt, 16 * warp, ks * 16, lane));
-          ldsm(bq, b_addr<LD>(qt, 16 * c, ks * 16, lane));
-          mma(s[0], a, bq[0], bq[1]);
-          mma(s[1], a, bq[2], bq[3]);
-          ldsm(a, a_addr<LD>(vt, 16 * warp, ks * 16, lane));
-          ldsm(bq, b_addr<LD>(gt, 16 * c, ks * 16, lane));
-          mma(dp[0], a, bq[0], bq[1]);
-          mma(dp[1], a, bq[2], bq[3]);
-        }
-        // fragment rows are keys (g, g + 8), columns queries (2t, 2t + 1)
-#pragma unroll
-        for (int n = 0; n < 2; ++n)
-#pragma unroll
-          for (int cc = 0; cc < 2; ++cc) {
-            const int ql = 16 * c + 8 * n + 2 * t + cc, row = i * TILE + ql;
-            const float mq = S[ql], inv_l = S[TILE + ql], dl = S[2 * TILE + ql];
-            const uint32_t rowterm = R[ql];
-#pragma unroll
-            for (int r = 0; r < 2; ++r) {
-              const int e = 2 * r + cc;
-              const float p = expf((uniform ? 0.f : s[n][e] * scale) - mq) * inv_l;
-              float pd = p, d = dp[n][e];
-              if (drop.on) {
-                const bool keep = dropout_mix(rowterm + keyterm[r]) >= drop.threshold;
-                pd = keep ? p * drop.inv_keep : 0.f;
-                d = keep ? d * drop.inv_keep : 0.f;
-              }
-              const bool live = row < T && key_live[r];
-              s[n][e] = live ? pd : 0.f;
-              dp[n][e] = live ? p * (d - dl) * scale : 0.f;
-            }
-          }
-        uint32_t apd[4], ads[4];
-        acc_to_a(apd, s[0], s[1]);   // rnd(pd)^T
-        acc_to_a(ads, dp[0], dp[1]);  // rnd(ds)^T
-        accumulate16<D>(dva, apd, gt, 16 * c, lane);
-        accumulate16<D>(dka, ads, qt, 16 * c, lane);
-      }
-    }
-    __syncthreads();
-  }
-  store_rows<D>(dk + base, dka, kw, T, E, h, lane);
-  store_rows<D>(dv + base, dva, kw, T, E, h, lane);
-}
-
-template <class K>
-cudaError_t allow_smem(K kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
-}
-
-template <int D>
-int forward(const bf16* q, const bf16* k, const bf16* v, const int* lengths,
-            const int* seeds, float* out, float* row_max, float* row_sum, int B, int T,
-            int E, int H, int tq, float scale, Dropout drop, cudaStream_t stream) {
-  const size_t bytes = key_smem<D>();
-  cudaError_t err = allow_smem(attn_fwd_tc_kernel<D>, bytes);
-  if (err != cudaSuccess) return err;
-  attn_fwd_tc_kernel<D><<<dim3((T + ROWS - 1) / ROWS, H, B), THREADS, bytes, stream>>>(
-      q, k, v, lengths, seeds, out, row_max, row_sum, T, E, tq, scale, drop);
-  return cudaGetLastError();
-}
-
-template <int D>
-int backward(const bf16* q, const bf16* k, const bf16* v, const bf16* gr,
-             const int* lengths, const int* seeds, const float* row_max,
-             const float* row_sum, float* delta, bf16* dq, bf16* dk, bf16* dv, int B, int T,
-             int E, int H, int tq, float scale, Dropout drop, cudaStream_t stream) {
-  const dim3 grid((T + ROWS - 1) / ROWS, H, B);
-  cudaError_t err = allow_smem(attn_bwd_dq_tc_kernel<D>, key_smem<D>());
-  if (err != cudaSuccess) return err;
-  attn_bwd_dq_tc_kernel<D><<<grid, THREADS, key_smem<D>(), stream>>>(
-      q, k, v, gr, lengths, seeds, row_max, row_sum, delta, dq, T, E, tq, scale, drop);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if ((err = allow_smem(attn_bwd_dkdv_tc_kernel<D>, dkdv_smem<D>())) != cudaSuccess)
-    return err;
-  attn_bwd_dkdv_tc_kernel<D><<<grid, THREADS, dkdv_smem<D>(), stream>>>(
-      q, k, v, gr, lengths, seeds, row_max, row_sum, delta, dk, dv, T, E, tq, scale, drop);
-  return cudaGetLastError();
-}
-
-int launch_forward(const void* q, const void* k, const void* v, const int* lengths,
-                   const int* seeds, float* out, float* row_max, float* row_sum, int B,
-                   int T, int E, int H, int tq, float scale, Dropout drop,
-                   cudaStream_t stream) {
-  const bf16 *qi = static_cast<const bf16*>(q), *ki = static_cast<const bf16*>(k),
-             *vi = static_cast<const bf16*>(v);
-  switch (E / H) {
-    case 16:
-      return forward<16>(qi, ki, vi, lengths, seeds, out, row_max, row_sum, B, T, E, H, tq,
-                         scale, drop, stream);
-    case 64:
-      return forward<64>(qi, ki, vi, lengths, seeds, out, row_max, row_sum, B, T, E, H, tq,
-                         scale, drop, stream);
-    case 128:
-      return forward<128>(qi, ki, vi, lengths, seeds, out, row_max, row_sum, B, T, E, H, tq,
-                          scale, drop, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
-int launch_backward(const void* q, const void* k, const void* v, const void* gr,
-                    const int* lengths, const int* seeds, const float* row_max,
-                    const float* row_sum, float* delta, void* dq, void* dk, void* dv, int B,
-                    int T, int E, int H, int tq, float scale, Dropout drop,
-                    cudaStream_t stream) {
-  const bf16 *qi = static_cast<const bf16*>(q), *ki = static_cast<const bf16*>(k),
-             *vi = static_cast<const bf16*>(v), *gi = static_cast<const bf16*>(gr);
-  bf16 *dqi = static_cast<bf16*>(dq), *dki = static_cast<bf16*>(dk),
-       *dvi = static_cast<bf16*>(dv);
-  switch (E / H) {
-    case 16:
-      return backward<16>(qi, ki, vi, gi, lengths, seeds, row_max, row_sum, delta, dqi, dki,
-                          dvi, B, T, E, H, tq, scale, drop, stream);
-    case 64:
-      return backward<64>(qi, ki, vi, gi, lengths, seeds, row_max, row_sum, delta, dqi, dki,
-                          dvi, B, T, E, H, tq, scale, drop, stream);
-    case 128:
-      return backward<128>(qi, ki, vi, gi, lengths, seeds, row_max, row_sum, delta, dqi, dki,
-                           dvi, B, T, E, H, tq, scale, drop, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
-size_t smem_bytes(int D) {
-  switch (D) {
-    case 16: return dkdv_smem<16>();
-    case 64: return dkdv_smem<64>();
-    case 128: return dkdv_smem<128>();
-    default: return 0;
-  }
-}
-
-static_assert(dkdv_smem<128>() >= key_smem<128>(),
-              "dk-dv takes the most shared memory");
-static_assert(dkdv_smem<128>() <= 227 * 1024, "a block's shared memory on an H100");
-
-}  // namespace tc
-
 template <typename In>
 int launch_forward(const void* q, const void* k, const void* v, const int* lengths,
                    const int* seeds, float* out, float* row_max, float* row_sum, int B,
@@ -1065,14 +500,73 @@ int launch_backward(const void* q, const void* k, const void* v, const float* g,
   }
 }
 
+// libcuda's tensor-map encoder, cuTensorMapEncodeTiled, needs the device's
+// context current on the calling thread. A thread on which the runtime has
+// made no call yet, such as autograd's worker running a backward, has
+// none; cudaSetDevice binds the primary context.
+cudaError_t bind_context() {
+  int dev = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
+  return err != cudaSuccess ? err : cudaSetDevice(dev);
+}
+
+// The tensor-core instance at the head dim E / H (attention_wgmma.cuh).
+int tc_forward(const void* q, const void* k, const void* v, const int* lengths,
+               const int* seeds, float* out, float* oprime, float* stats, int B, int T, int E,
+               int H, int tq, float scale, Dropout drop, cudaStream_t stream) {
+  using wg::bf16;
+  const bf16 *qi = static_cast<const bf16*>(q), *ki = static_cast<const bf16*>(k),
+             *vi = static_cast<const bf16*>(v);
+  float* row_sum = stats + (size_t)B * H * T;
+  switch (E / H) {
+    case 16:
+      return wg::forward<16>(qi, ki, vi, lengths, seeds, out, oprime, stats, row_sum, B, T, E,
+                             H, tq, scale, drop, stream);
+    case 64:
+      return wg::forward<64>(qi, ki, vi, lengths, seeds, out, oprime, stats, row_sum, B, T, E,
+                             H, tq, scale, drop, stream);
+    case 128:
+      return wg::forward<128>(qi, ki, vi, lengths, seeds, out, oprime, stats, row_sum, B, T,
+                              E, H, tq, scale, drop, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+int tc_backward(const void* q, const void* k, const void* v, const float* g,
+                const int* lengths, const int* seeds, const float* stats, const float* oprime,
+                float* terms, void* gr, void* dq, void* dk, void* dv, int B, int T, int E,
+                int H, int tq, float scale, Dropout drop, cudaStream_t stream) {
+  using wg::bf16;
+  const bf16 *qi = static_cast<const bf16*>(q), *ki = static_cast<const bf16*>(k),
+             *vi = static_cast<const bf16*>(v);
+  bf16 *gi = static_cast<bf16*>(gr), *dqi = static_cast<bf16*>(dq),
+       *dki = static_cast<bf16*>(dk), *dvi = static_cast<bf16*>(dv);
+  const float* row_sum = stats + (size_t)B * H * T;
+  switch (E / H) {
+    case 16:
+      return wg::backward<16>(qi, ki, vi, g, lengths, seeds, stats, row_sum, oprime, terms, gi,
+                              dqi, dki, dvi, B, T, E, H, tq, scale, drop, stream);
+    case 64:
+      return wg::backward<64>(qi, ki, vi, g, lengths, seeds, stats, row_sum, oprime, terms, gi,
+                              dqi, dki, dvi, B, T, E, H, tq, scale, drop, stream);
+    case 128:
+      return wg::backward<128>(qi, ki, vi, g, lengths, seeds, stats, row_sum, oprime, terms,
+                               gi, dqi, dki, dvi, B, T, E, H, tq, scale, drop, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
-// q, k, v: (B, T, E), float32 or (io_bf16) bfloat16; out: (B, T, E) f32;
-// lengths, seeds: (B,) int32; row_max, row_sum: (B, H, T) f32 outputs.
-// The wrapper checks the shapes, that E / H is 16, 64 or 128, that tq
-// divides T and (tensor-core instance) that q/k/v are 16-byte aligned.
-// bf16 I/O with bf16 rounding takes the tensor-core instance, the rest the
-// CUDA-core one. Returns the first CUDA error.
+// The CUDA-core instance. q, k, v: (B, T, E), float32 or (io_bf16)
+// bfloat16 with rounding off (round_bf16 = 0) or float32 with bf16
+// rounding; out: (B, T, E) f32; lengths, seeds: (B,) int32; row_max,
+// row_sum: (B, H, T) f32 outputs. bf16 I/O with bf16 rounding is the
+// tensor-core instance's (attention_train_tc_forward) and is refused here.
+// The wrapper checks the shapes, that E / H is 16, 64 or 128 and that tq
+// divides T. Returns the first CUDA error.
 extern "C" int attention_train_forward(const void* q, const void* k, const void* v,
                                        const int* lengths, const int* seeds, float* out,
                                        float* row_max, float* row_sum, int B, int T,
@@ -1082,9 +576,7 @@ extern "C" int attention_train_forward(const void* q, const void* k, const void*
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
   const Dropout drop{use_dropout != 0, threshold, inv_keep};
   const bool bf16 = round_bf16 != 0;
-  if (io_bf16 && bf16)
-    return tc::launch_forward(q, k, v, lengths, seeds, out, row_max, row_sum, B, T, E, H, tq,
-                              scale, drop, stream);
+  if (io_bf16 && bf16) return cudaErrorInvalidValue;
   return io_bf16 ? launch_forward<__nv_bfloat16>(q, k, v, lengths, seeds, out, row_max,
                                                  row_sum, B, T, E, H, tq, scale, drop, bf16,
                                                  stream)
@@ -1092,10 +584,9 @@ extern "C" int attention_train_forward(const void* q, const void* k, const void*
                                          T, E, H, tq, scale, drop, bf16, stream);
 }
 
-// g: (B, T, E) cotangent of out: f32 for the CUDA-core instance, which
-// rounds it per head itself; bfloat16 (already rounded, once, by the
-// wrapper) for the tensor-core instance. delta: (B, H, T) f32 scratch;
-// dq, dk, dv: (B, T, E) outputs in q's element type.
+// g: (B, T, E) f32 cotangent of out, rounded per head by the kernels;
+// delta: (B, H, T) f32 scratch; dq, dk, dv: (B, T, E) outputs in q's
+// element type.
 extern "C" int attention_train_backward(const void* q, const void* k, const void* v,
                                         const void* g, const int* lengths,
                                         const int* seeds, const float* row_max,
@@ -1108,9 +599,7 @@ extern "C" int attention_train_backward(const void* q, const void* k, const void
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
   const Dropout drop{use_dropout != 0, threshold, inv_keep};
   const bool bf16 = round_bf16 != 0;
-  if (io_bf16 && bf16)
-    return tc::launch_backward(q, k, v, g, lengths, seeds, row_max, row_sum, delta, dq, dk,
-                               dv, B, T, E, H, tq, scale, drop, stream);
+  if (io_bf16 && bf16) return cudaErrorInvalidValue;
   const float* gf = static_cast<const float*>(g);
   return io_bf16
              ? launch_backward<__nv_bfloat16>(q, k, v, gf, lengths, seeds, row_max, row_sum,
@@ -1120,9 +609,53 @@ extern "C" int attention_train_backward(const void* q, const void* k, const void
                                       dq, dk, dv, B, T, E, H, tq, scale, drop, bf16, stream);
 }
 
+// The tensor-core instance (bf16 q/k/v, bf16 rounding). q, k, v: (B, T,
+// E) bf16, 16-byte aligned (TMA); out and oprime: (B, T, E) f32 outputs
+// (o' = sum_j pd_ij v_j with the unrounded pd, for the backward's delta);
+// stats: (2, B, H, T) f32 outputs, row max then row sum. Returns the
+// first CUDA error, or -1 if cuTensorMapEncodeTiled refuses a tensor map.
+extern "C" int attention_train_tc_forward(const void* q, const void* k, const void* v,
+                                          const int* lengths, const int* seeds, float* out,
+                                          float* oprime, float* stats, int B, int T, int E,
+                                          int H, int tq, float scale, int use_dropout,
+                                          unsigned int threshold, float inv_keep,
+                                          void* stream_handle) {
+  const cudaError_t err = bind_context();
+  if (err != cudaSuccess) return err;
+  return tc_forward(q, k, v, lengths, seeds, out, oprime, stats, B, T, E, H, tq, scale,
+                    Dropout{use_dropout != 0, threshold, inv_keep},
+                    static_cast<cudaStream_t>(stream_handle));
+}
+
+// g: (B, T, E) f32 cotangent, rounded to bf16 once here (the Pallas kernel
+// rounds it per head: the same values) into gr, (B, T, E) bf16 scratch;
+// stats and oprime: the forward's; terms: (B, H, T, 4) f32 scratch; dq,
+// dk, dv: (B, T, E) bf16 outputs.
+extern "C" int attention_train_tc_backward(const void* q, const void* k, const void* v,
+                                           const float* g, const int* lengths,
+                                           const int* seeds, const float* stats,
+                                           const float* oprime, float* terms, void* gr,
+                                           void* dq, void* dk, void* dv, int B, int T, int E,
+                                           int H, int tq, float scale, int use_dropout,
+                                           unsigned int threshold, float inv_keep,
+                                           void* stream_handle) {
+  const cudaError_t err = bind_context();
+  if (err != cudaSuccess) return err;
+  return tc_backward(q, k, v, g, lengths, seeds, stats, oprime, terms, gr, dq, dk, dv, B, T,
+                     E, H, tq, scale, Dropout{use_dropout != 0, threshold, inv_keep},
+                     static_cast<cudaStream_t>(stream_handle));
+}
+
 // The largest dynamic shared memory of the tensor-core instance's launches
 // at head dim D (0 for a head dim it does not take): what the wrapper's
 // plan_attention mirrors.
 extern "C" long long attention_train_tc_smem_bytes(int D) {
-  return (long long)tc::smem_bytes(D);
+  return (long long)wg::smem_bytes(D);
+}
+
+// The tensor maps the tensor-core launches have encoded since the library
+// loaded (out[0]) and the host nanoseconds spent encoding them (out[1]).
+extern "C" void attention_train_tc_map_stats(long long* out) {
+  out[0] = wg::maps_encoded;
+  out[1] = wg::map_encode_ns;
 }

@@ -1,7 +1,8 @@
-// bf16 tensor-core building blocks for sm_90a, shared by the training
-// attention (K2, attention_train.cu) and the C-blocked training conv-FF
-// (K4, conv_ff_blocked_tc.cu): cp.async copies into shared memory,
-// ldmatrix operand loads and mma.sync m16n8k16 bf16 -> f32.
+// bf16 tensor-core building blocks for sm_90a, shared by the inference FFT
+// block (K1, through attention_tc.cuh and conv_ff_tc.cuh) and the
+// conv-FF and vocoder kernels (K3-K5, through conv_ff_tc.cuh): cp.async
+// copies into shared memory, ldmatrix operand loads and mma.sync m16n8k16
+// bf16 -> f32.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16): lane = 4 g + t holds the
 // accumulator's rows g and g + 8 at columns 2t, 2t + 1; the A operand the

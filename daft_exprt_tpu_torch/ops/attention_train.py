@@ -30,9 +30,13 @@ On a CUDA tensor the wrappers launch the kernels of
 and ``.bwd_launches``) or raise; on a CPU tensor they take the plain
 versions below. :func:`plan_attention` says which instance of the kernels
 a call takes: bfloat16 q/k/v with bfloat16 rounding (the training path)
-the tensor-core one (also counted in ``attention_core.tc_fwd_launches``
-and ``.tc_bwd_launches``), float32, and bfloat16 with the rounding off,
-the CUDA-core one.
+the tensor-core one (``csrc/attention_wgmma.cuh``: wgmma and TMA; also
+counted in ``attention_core.tc_fwd_launches`` and ``.tc_bwd_launches``),
+float32, and bfloat16 with the rounding off, the CUDA-core one. The
+tensor-core forward also leaves ``o' = sum_j pd_ij v_j`` with the
+unrounded dropped probabilities (the plain forward at float32 dots), from
+which its backward takes the JAX kernels' ``delta = sum_j dp_ij p_ij`` as
+``rnd(g_i) . o'_i`` without a pass over the keys.
 """
 
 from __future__ import annotations
@@ -51,10 +55,12 @@ from daft_exprt_tpu_torch.ops.attention_common import NEG_INF, pick_q_tile
 # (the flagship's 128, the wide ablation's 512), head dims 16, 64 and 128
 KERNEL_WIDTH_MULTIPLE = 128
 KERNEL_HEAD_DIMS = (16, 64, 128)
-# the tensor-core instance: 4 warps of 16 rows own 64 query (or key) rows
-# and stream 64-row bf16 tiles, each row padded by 8 elements
+# the tensor-core instance (csrc/attention_wgmma.cuh): a warpgroup owns 64
+# query (or key) rows; the most dynamic shared memory of its launches at
+# each head dim D, dk-dv's (the header's dkdv_smem<D>(), which sets the
+# depth of its ring; chip_smoke.py checks these against the built count)
 TC_ROWS = 64
-TC_ROW_PAD = 8
+TC_SMEM_BYTES = {16: 26112, 64: 70144, 128: 101888}
 
 _MASK32 = 0xFFFFFFFF
 
@@ -196,16 +202,14 @@ class AttentionPlan(NamedTuple):
     smem_bytes: int   # the largest dynamic shared memory of its launches
 
 
+@functools.lru_cache(maxsize=None)
 def plan_attention(t: int, e: int, h: int, io_dtype, dot_dtype) -> AttentionPlan:
     """The kernels' instance at (T, E, H) for q/k/v in ``io_dtype`` and
     rounding at ``dot_dtype``, mirroring ``csrc/attention_train.cu``: the
-    tensor-core instance for bfloat16 with bfloat16 rounding (its dk-dv
-    launch takes the most shared memory: K and V of its 64 keys and two
-    stages of 64-query Q and G tiles in bf16, and two stages of four
-    float32 terms per query: row max, 1 / row sum, delta, dropout row
-    term), the CUDA-core one (static shared memory, 128 / (D / 16) rows a
-    block) otherwise. T does not enter: both take any T. Raises ValueError
-    outside the kernels' envelope."""
+    tensor-core instance for bfloat16 with bfloat16 rounding
+    (``TC_SMEM_BYTES``), the CUDA-core one (static shared memory, 128 /
+    (D / 16) rows a block) otherwise. T does not enter: both take any T.
+    Raises ValueError outside the kernels' envelope."""
     del t
     if e % KERNEL_WIDTH_MULTIPLE or e % h or e // h not in KERNEL_HEAD_DIMS:
         raise ValueError(f"attention_core: the kernel takes E % "
@@ -213,9 +217,7 @@ def plan_attention(t: int, e: int, h: int, io_dtype, dot_dtype) -> AttentionPlan
                          f"{KERNEL_HEAD_DIMS}, got E={e}, H={h}")
     d = e // h
     if io_dtype == torch.bfloat16 and dot_dtype == torch.bfloat16:
-        tile = TC_ROWS * (d + TC_ROW_PAD) * 2
-        return AttentionPlan("tensor_core", TC_ROWS,
-                             6 * tile + 2 * 4 * TC_ROWS * 4)
+        return AttentionPlan("tensor_core", TC_ROWS, TC_SMEM_BYTES[d])
     return AttentionPlan("cuda_core", 128 * 16 // d, 0)
 
 
@@ -225,16 +227,20 @@ def plan_attention(t: int, e: int, h: int, io_dtype, dot_dtype) -> AttentionPlan
 @functools.cache
 def _kernels():
     """The C entry points of ``csrc/attention_train.cu``, built at first
-    use."""
+    use: the CUDA-core forward and backward, then the tensor-core ones."""
     lib = load_library("attention_train")
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    p, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
     fwd = lib.attention_train_forward
-    fwd.argtypes = [p] * 8 + [i] * 5 + [f, i, ctypes.c_uint32, f, i, i, p]
-    fwd.restype = i
+    fwd.argtypes = [p] * 8 + [i] * 5 + [f, i, u, f, i, i, p]
     bwd = lib.attention_train_backward
-    bwd.argtypes = [p] * 12 + [i] * 5 + [f, i, ctypes.c_uint32, f, i, i, p]
-    bwd.restype = i
-    return fwd, bwd
+    bwd.argtypes = [p] * 12 + [i] * 5 + [f, i, u, f, i, i, p]
+    tc_fwd = lib.attention_train_tc_forward
+    tc_fwd.argtypes = [p] * 8 + [i] * 5 + [f, i, u, f, p]
+    tc_bwd = lib.attention_train_tc_backward
+    tc_bwd.argtypes = [p] * 13 + [i] * 5 + [f, i, u, f, p]
+    for fn in (fwd, bwd, tc_fwd, tc_bwd):
+        fn.restype = i
+    return fwd, bwd, tc_fwd, tc_bwd
 
 
 def tc_smem_bytes(head_dim: int) -> int:
@@ -245,90 +251,143 @@ def tc_smem_bytes(head_dim: int) -> int:
     return int(fn(head_dim))
 
 
+def tc_map_stats() -> tuple[int, int]:
+    """The tensor maps the tensor-core launches have encoded (one per
+    streamed tensor a launch) and the host nanoseconds spent encoding them,
+    since the built library loaded."""
+    fn = load_library("attention_train").attention_train_tc_map_stats
+    fn.argtypes, fn.restype = [ctypes.c_void_p], None
+    out = (ctypes.c_longlong * 2)()
+    fn(out)
+    return out[0], out[1]
+
+
 def _check_cuda(q, k, v, lengths, seeds, num_heads, dot_dtype, g=None):
     """Raise unless the kernels take these arguments; :return: the plan."""
-    B, T, E = q.shape
+    B, T, E = shape = q.shape
     plan = plan_attention(T, E, num_heads, q.dtype, dot_dtype)
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"attention_core: q/k/v dtype {q.dtype}")
     for name, t, dtype in (("q", q, q.dtype), ("k", k, q.dtype),
                            ("v", v, q.dtype), ("g", g, torch.float32)):
-        if t is None:
-            continue
-        if (tuple(t.shape) != (B, T, E) or t.dtype != dtype
-                or t.device != q.device or not t.is_contiguous()):
+        if t is not None and (t.shape != shape or t.dtype != dtype
+                              or t.device != q.device
+                              or not t.is_contiguous()):
             raise ValueError(f"attention_core: {name} must be contiguous "
                              f"{dtype} {(B, T, E)} on {q.device}")
     for name, t in (("lengths", lengths), ("seeds", seeds)):
-        if (tuple(t.shape) != (B,) or t.dtype != torch.int32
+        if (t.shape != (B,) or t.dtype != torch.int32
                 or t.device != q.device or not t.is_contiguous()):
             raise ValueError(f"attention_core: {name} must be contiguous "
                              f"int32 (B,) on {q.device}")
     if dot_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"attention_core: dot_dtype {dot_dtype}")
-    # the tensor-core instance copies 16-byte chunks of q/k/v rows
+    # the tensor-core instance reads q/k/v by TMA and g by float4 loads,
+    # from 16-byte boundaries
     if plan.instance == "tensor_core" and any(
-            t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("attention_core: q/k/v must be 16-byte aligned")
+            t is not None and t.data_ptr() % 16 for t in (q, k, v, g)):
+        raise ValueError("attention_core: q/k/v/g must be 16-byte aligned")
     return plan
 
 
-def _scalars(T, E, num_heads, rate, dot_dtype, io_dtype):
+@functools.lru_cache(maxsize=None)
+def _scalars(T, E, num_heads, rate):
+    """The kernels' scalar arguments after the pointers and B: T, E, H,
+    the dropout query tile, 1 / sqrt(D), and the dropout terms."""
     D = E // num_heads
-    return (E, num_heads, pick_q_tile(T), 1.0 / math.sqrt(D), int(rate > 0.0),
-            dropout_threshold(rate) if rate > 0.0 else 0,
-            1.0 / (1.0 - rate) if rate > 0.0 else 1.0,
-            int(dot_dtype == torch.bfloat16), int(io_dtype == torch.bfloat16))
+    return (T, E, num_heads, pick_q_tile(T), 1.0 / math.sqrt(D),
+            int(rate > 0.0), dropout_threshold(rate) if rate > 0.0 else 0,
+            1.0 / (1.0 - rate) if rate > 0.0 else 1.0)
+
+
+def _launch(fn, device, *args):
+    """``fn(*args, stream)`` on ``device``'s current stream, switching the
+    current device only where it differs; raises on a CUDA error."""
+    index = device.index
+    if index == torch.cuda.current_device():
+        err = fn(*args, torch.cuda.current_stream(index).cuda_stream)
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, torch.cuda.current_stream(index).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"attention_core: CUDA error {err} at launch"
+                           if err > 0 else "attention_core: "
+                           "cuTensorMapEncodeTiled refused a tensor map")
 
 
 def attention_forward_cuda(q, k, v, lengths, seeds, num_heads, rate,
                            dot_dtype):
     """K2's forward kernel on q/k/v in float32 or bfloat16: (out (B, T, E)
-    float32, row_max, row_sum (B, H, T))."""
+    float32, what the backward takes: (row stats (2, B, H, T): max, sum,)
+    and for the tensor-core instance o' (B, T, E) float32)."""
     plan = _check_cuda(q, k, v, lengths, seeds, num_heads, dot_dtype)
     B, T, E = q.shape
-    out = torch.empty((B, T, E), dtype=torch.float32, device=q.device)
+    tensor_core = plan.instance == "tensor_core"
     stats = torch.empty((2, B, num_heads, T), dtype=torch.float32,
                         device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _kernels()[0](
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-            seeds.data_ptr(), out.data_ptr(), stats[0].data_ptr(),
-            stats[1].data_ptr(), B, T,
-            *_scalars(T, E, num_heads, rate, dot_dtype, q.dtype), stream)
-    if err != 0:
-        raise RuntimeError(f"attention_core: CUDA error {err} at launch")
+    scalars = _scalars(T, E, num_heads, rate)
+    if tensor_core:
+        out, oprime = torch.empty((2, B, T, E), dtype=torch.float32,
+                                  device=q.device)
+        _launch(_kernels()[2], q.device, q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), lengths.data_ptr(), seeds.data_ptr(),
+                out.data_ptr(), oprime.data_ptr(), stats.data_ptr(), B,
+                *scalars)
+        saved = (stats, oprime)
+    else:
+        out = torch.empty((B, T, E), dtype=torch.float32, device=q.device)
+        _launch(_kernels()[0], q.device, q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), lengths.data_ptr(), seeds.data_ptr(),
+                out.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(), B,
+                *scalars, int(dot_dtype == torch.bfloat16),
+                int(q.dtype == torch.bfloat16))
+        saved = (stats,)
     attention_core.fwd_launches += 1
-    attention_core.tc_fwd_launches += int(plan.instance == "tensor_core")
-    return out, stats
+    attention_core.tc_fwd_launches += int(tensor_core)
+    return out, saved
 
 
-def attention_backward_cuda(q, k, v, g, lengths, seeds, stats, num_heads,
+def attention_backward_cuda(q, k, v, g, lengths, seeds, saved, num_heads,
                             rate, dot_dtype):
-    """K2's backward kernels: (dq, dk, dv) in q's dtype; ``g`` float32.
-    The tensor-core instance takes the cotangent rounded to bfloat16 once
-    here (the Pallas kernel rounds it per head: the same values)."""
+    """K2's backward kernels: (dq, dk, dv) in q's dtype; ``g`` float32,
+    ``saved`` the forward's. The tensor-core instance rounds the cotangent
+    to bfloat16 once (the Pallas kernel rounds it per head: the same
+    values), in its dq launch."""
     plan = _check_cuda(q, k, v, lengths, seeds, num_heads, dot_dtype, g)
     B, T, E = q.shape
-    if tuple(stats.shape) != (2, B, num_heads, T) or not stats.is_contiguous():
-        raise ValueError("attention_core: row stats of another call")
     tensor_core = plan.instance == "tensor_core"
+    stats = saved[0]
+    if (len(saved) != 1 + tensor_core
+            or stats.shape != (2, B, num_heads, T)
+            or (tensor_core and saved[1].shape != q.shape)
+            or any(t.dtype != torch.float32 or not t.is_contiguous()
+                   or t.device != q.device for t in saved)):
+        raise ValueError("attention_core: row stats of another call")
+    # the dq launch reads o' by float4 loads
+    if tensor_core and saved[1].data_ptr() % 16:
+        raise ValueError("attention_core: o' must be 16-byte aligned")
+    scalars = _scalars(T, E, num_heads, rate)
     if tensor_core:
-        g = g.to(torch.bfloat16)
-    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    delta = torch.empty((B, num_heads, T), dtype=torch.float32,
-                        device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _kernels()[1](
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-            lengths.data_ptr(), seeds.data_ptr(), stats[0].data_ptr(),
-            stats[1].data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), B, T,
-            *_scalars(T, E, num_heads, rate, dot_dtype, q.dtype), stream)
-    if err != 0:
-        raise RuntimeError(f"attention_core: CUDA error {err} at launch")
+        # dq, dk, dv, and the bf16 cotangent the dq launch writes for dk-dv
+        dq, dk, dv, gr = torch.empty((4, B, T, E), dtype=q.dtype,
+                                     device=q.device)
+        terms = torch.empty((B, num_heads, T, 4), dtype=torch.float32,
+                            device=q.device)
+        _launch(_kernels()[3], q.device, q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), g.data_ptr(), lengths.data_ptr(),
+                seeds.data_ptr(), stats.data_ptr(), saved[1].data_ptr(),
+                terms.data_ptr(), gr.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), B, *scalars)
+    else:
+        dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+        delta = torch.empty((B, num_heads, T), dtype=torch.float32,
+                            device=q.device)
+        _launch(_kernels()[1], q.device, q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), g.data_ptr(), lengths.data_ptr(),
+                seeds.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
+                delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                B, *scalars, int(dot_dtype == torch.bfloat16),
+                int(q.dtype == torch.bfloat16))
     attention_core.bwd_launches += 1
     attention_core.tc_bwd_launches += int(tensor_core)
     return dq, dk, dv
@@ -339,27 +398,28 @@ class _AttentionCore(torch.autograd.Function):
     def forward(ctx, q, k, v, lengths, seeds, num_heads, rate, dot_dtype):
         args = (lengths, seeds, num_heads, rate, dot_dtype)
         if q.device.type == "cpu":
-            out, stats = attention_plain(q, k, v, *args), None
+            out, saved = attention_plain(q, k, v, *args), ()
         elif q.device.type != "cuda":
             raise ValueError(f"attention_core: unsupported device {q.device}")
         else:
             q, k, v = (t.contiguous() for t in (q, k, v))
-            out, stats = attention_forward_cuda(q, k, v, *args)
-        ctx.save_for_backward(q, k, v, lengths, seeds, stats)
+            out, saved = attention_forward_cuda(q, k, v, *args)
+        ctx.save_for_backward(q, k, v, lengths, seeds, *saved)
         ctx.args = (num_heads, rate, dot_dtype)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, lengths, seeds, stats = ctx.saved_tensors
+        q, k, v, lengths, seeds, *saved = ctx.saved_tensors
         num_heads, rate, dot_dtype = ctx.args
         g = g.float().contiguous()
-        if stats is None:
+        if not saved:
             dq, dk, dv = attention_plain_backward(
                 q, k, v, g, lengths, seeds, num_heads, rate, dot_dtype)
         else:
             dq, dk, dv = attention_backward_cuda(
-                q, k, v, g, lengths, seeds, stats, num_heads, rate, dot_dtype)
+                q, k, v, g, lengths, seeds, tuple(saved), num_heads, rate,
+                dot_dtype)
         return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
                 None, None, None)
 

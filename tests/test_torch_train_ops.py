@@ -23,7 +23,8 @@ import torch
 from daft_exprt_tpu.models import modules as jnn
 from daft_exprt_tpu.ops import attention_common as jcommon
 from daft_exprt_tpu.ops import gaussian_upsampling as jgu
-from daft_exprt_tpu.ops.attention_train import _hash_bits
+from daft_exprt_tpu.ops.attention_train import (_dropout_threshold, _hash_bits,
+                                                _keep_mask, _probs)
 from daft_exprt_tpu.ops.attention_train import attention_core as jax_attention
 from daft_exprt_tpu.ops.conv_ff_train import conv_ff_train as jax_conv_ff
 from daft_exprt_tpu.ops.conv_ff_train import \
@@ -525,10 +526,13 @@ K2_HEAD_DIMS = [pytest.param(128, 8, id="D16"), pytest.param(128, 2, id="D64"),
 def test_plan_attention_bf16_rounding_takes_tensor_cores(E_, H):
     plan = plan_attention(768, E_, H, torch.bfloat16, torch.bfloat16)
     D = E_ // H
-    # dk-dv's tiles: K and V of 64 keys and two stages of 64-query Q and G
-    # tiles, bf16 rows padded by 8 elements, and two stages of four f32
-    # terms per query
-    assert plan == ("tensor_core", 64, 6 * 64 * (D + 8) * 2 + 2 * 4 * 64 * 4)
+    tile = 64 * D * 2  # 64 rows of one head, bf16
+    # dk-dv's tiles: K and V of 64 keys and a ring of stages of 64-query Q
+    # and G tiles and their float4 terms, after 1024 bytes of alignment
+    # slack and before 512 of barriers
+    stages = {16: 4, 64: 3, 128: 2}[D]
+    assert plan == ("tensor_core", 64,
+                    1024 + 2 * tile + stages * (2 * tile + 64 * 16) + 512)
 
 
 @pytest.mark.parametrize("io_dtype,dot_dtype", [
@@ -537,9 +541,103 @@ def test_plan_attention_bf16_rounding_takes_tensor_cores(E_, H):
 @pytest.mark.parametrize("E_,H", K2_HEAD_DIMS)
 def test_plan_attention_cuda_core_for_f32_and_unrounded_bf16(
         io_dtype, dot_dtype, E_, H):
-    # G = D / 16 lanes share a query row, 128 threads a block
+    # G = D / 16 lanes share a query row, 128 threads a block; static
+    # shared memory
     plan = plan_attention(768, E_, H, io_dtype, dot_dtype)
     assert plan == ("cuda_core", 128 * 16 // (E_ // H), 0)
+
+
+def test_tc_backward_refuses_stats_without_oprime():
+    """The tensor-core backward takes the forward's row stats and o'; the
+    CUDA-core instance's saved stats alone are refused before any launch."""
+    from daft_exprt_tpu_torch.ops.attention_train import \
+        attention_backward_cuda
+    q = torch.zeros((2, 16, 128), dtype=torch.bfloat16)
+    g = torch.zeros((2, 16, 128))
+    ints = torch.zeros((2,), dtype=torch.int32)
+    stats = torch.zeros((2, 2, 2, 16))
+    with pytest.raises(ValueError, match="row stats of another call"):
+        attention_backward_cuda(q, q, q, g, ints, ints, (stats,), 2, 0.0,
+                                torch.bfloat16)
+
+
+@pytest.mark.parametrize("misaligned", ["g", "oprime"])
+def test_tc_backward_refuses_misaligned_g_and_oprime(misaligned):
+    """The dq launch reads g and o' by 16-byte loads: a contiguous float32
+    view that starts one element into its storage is refused before any
+    launch."""
+    from daft_exprt_tpu_torch.ops.attention_train import \
+        attention_backward_cuda
+    shape = (2, 16, 128)
+    q = torch.zeros(shape, dtype=torch.bfloat16)
+    ints = torch.zeros((2,), dtype=torch.int32)
+    stats = torch.zeros((2, 2, 2, 16))
+    g, oprime = torch.zeros(shape), torch.zeros(shape)
+    shifted = torch.zeros(2 * 16 * 128 + 1)[1:].view(shape)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    if misaligned == "g":
+        g = shifted
+    else:
+        oprime = shifted
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        attention_backward_cuda(q, q, q, g, ints, ints, (stats, oprime), 2,
+                                0.0, torch.bfloat16)
+
+
+def _jax_delta(q, k, v, g, lengths, seeds, H, rate):
+    """(B, H, T) float32: delta_i = sum_j dp_ij p_ij as the Pallas
+    ``_bwd_kernel`` forms it, query tile by query tile from its own
+    ``_probs`` and ``_keep_mask``, at bfloat16 dots."""
+    D = q.shape[-1] // H
+    TQ = jcommon.pick_q_tile(T)
+    col = jax.lax.broadcasted_iota(jnp.int32, (TQ, T), 1)
+    threshold = _dropout_threshold(rate)
+    delta = np.zeros((B, H, T), np.float32)
+    for b in range(B):
+        for h in range(H):
+            q_h, k_h, v_h, g_h = (jnp.asarray(a[b, :, h * D:(h + 1) * D],
+                                              jnp.bfloat16)
+                                  for a in (q, k, v, g))
+            for i in range(T // TQ):
+                p = _probs(q_h, k_h, col, int(lengths[b]), 1.0 / np.sqrt(D),
+                           i, TQ)
+                keep = _keep_mask(jnp.int32(seeds[b]), h * (T // TQ) + i,
+                                  i * TQ, p.shape, threshold)
+                dp = jax.lax.dot_general(
+                    g_h[i * TQ:(i + 1) * TQ], v_h, (((1,), (1,)), ((), ())),
+                    preferred_element_type=jnp.float32)
+                dp = jnp.where(keep, dp * (1.0 / (1.0 - rate)), 0.0)
+                delta[b, h, i * TQ:(i + 1) * TQ] = jnp.sum(dp * p, axis=-1)
+    return delta
+
+
+@pytest.mark.parametrize("H,width", [pytest.param(8, E, id="D4"),
+                                     pytest.param(2, E, id="D16"),
+                                     pytest.param(2, 256, id="D128")])
+def test_delta_from_oprime_is_the_jax_kernels_delta(H, width):
+    """The tensor-core backward's delta_i = rnd(g_i) . o'_i, with o' the
+    forward's sum_j pd_ij v_j over the unrounded dropped probabilities (the
+    plain forward at float32 dots), equals the Pallas backward's sum_j
+    dp_ij p_ij at rate 0.1 within 1e-6 relative L2 over every row (read
+    here: 1.8e-7 to 2.4e-7, the same at 1 to 32 threads and under load);
+    rowsum(rnd(g) * out), out's pd rounded to bf16 before PV, does not
+    (1.6e-3, which must exceed 1e-4)."""
+    rate = 0.1
+    q, k, v, g, lengths, seeds = _attention_inputs(60 + H, width)
+    want = _jax_delta(q, k, v, g, lengths, seeds, H, rate).astype(np.float64)
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16).float()
+               for a in (q, k, v))
+    gr = torch.from_numpy(g).to(torch.bfloat16).float()
+    args = (_t(lengths), _t(seeds), H, rate)
+    D = width // H
+
+    def rel(a):  # (B, T, E) -> rnd(g) . a per head, against the JAX delta
+        got = (gr * a).view(B, T, H, D).sum(-1).transpose(1, 2).double()
+        return _rel_l2(got.numpy(), want)
+
+    oprime = rel(attention_plain(q, k, v, *args, torch.float32))
+    rounded = rel(attention_plain(q, k, v, *args, torch.bfloat16))
+    assert oprime <= 1e-6 < 1e-4 < rounded, (oprime, rounded)
 
 
 # (T, E, H) of chip_smoke.py's K2_SHAPES: the flagship and wide training
