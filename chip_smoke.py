@@ -65,8 +65,11 @@ result line):
    equals ``run_cached`` -> crop -> ``vocode_mels``; profile one request
    (K5's device time all in its tensor-core kernel);
    stream one utterance through ``StreamingVocoder`` against
-   ``vocode_mels``; hold a small float32 audio request on the card against
-   the CPU (TF32 off);
+   ``vocode_mels``, every window a replay of the generator's window graph
+   (chunks bit-equal to the same stream run eagerly, K5 3 a window
+   counted on the device and none at the wrapper, first chunk and one
+   window replayed against eager); hold a small float32 audio request on
+   the card against the CPU (TF32 off);
    then the engine's compiled passes (``engine_graphs``: a CUDA graph per
    engine graph and argument signature, ``inference/graphs.py``): a B=8
    mel request under each bucket policy and an audio request, each
@@ -116,11 +119,17 @@ result line):
    relative-L2 limit;
 6. take training steps at the flagship width (bf16, dropout 0.1, batch
    16, accumulation 3, L=128 symbols, T=768 frames) through
-   ``make_train_step``: 2 warm-up and 5 timed steps, the K2 and K3
-   launch counters read around the timed ones (12 x 3 per step each, every
-   K2 and K3 launch on its tensor-core instance, K1 and K4 none); profile
-   one step (K2's and K3's device time all in their tensor-core kernels);
-   then hold a
+   ``make_train_step``, every step after the first a CUDA graph replay
+   (``train``): 4 replayed steps against the same 4 run eagerly on the
+   card, twice (metrics and parameters bit-equal, or within the eager
+   runs' own spread; a frozen-seed control must differ); the K2 and K3
+   launch counters (the eager first step 12 x 3 each, as many recorded by
+   its capture, none at a replay; every K2 and K3 launch on its
+   tensor-core instance, K1 and K4 none) and 12 x 3 each counted on the
+   device in a profiled replayed step; K2's tensor maps encoded at the
+   eager step and the capture alone; step ms replayed against eager in
+   alternating rounds, each profiled once (K2's and K3's device time all
+   in their tensor-core kernels); then hold a
    small float32 step (K2 on its CUDA-core instance) on the
    card against the same step on the CPU (loss, gradient norm,
    gradients);
@@ -136,17 +145,18 @@ result line):
    one C block) and time them at bf16 (CUDA events, profiler device time,
    the plain version, and the same GEMMs as staged bf16 cuBLAS matmuls on
    shifted operands), failing past 1.0 / 3.0 ms forward / backward at the
-   wide frame-rate shape; take 2 + 5 wide steps as in 6 (K2 and K4 12 x 3
+   wide frame-rate shape; take the wide steps as in 6 (K2 and K4 12 x 3
    per step each, every K4 launch on its tensor-core instance, K3 and K1
-   none) and profile one (K4's device time all in its tensor-core
-   kernels); hold a small float32 wide step (E=256, 2 heads of 128,
+   none; K4's device time all in its tensor-core kernels); hold a small
+   float32 wide step (E=256, 2 heads of 128,
    C=256) on the card against the CPU;
 8. text serving at flagship width through the port's own entry points
    (``text_serving``): a seed-0 flagship checkpoint written as a reference
    ``.pt`` and a seed-0 V1 generator as a torch ``g_*`` file; the repo's
    five style wavs extracted on the card (mel/energy timed) and held
    against the CPU (pitch equal, log-mel and energy within the CPU
-   tests' bounds); ``daft_exprt_tpu_torch.cli.synthesize`` in this
+   tests' bounds), then again in three fresh processes (each within the
+   same bounds); ``daft_exprt_tpu_torch.cli.synthesize`` in this
    process on four plain-text lines (a tiny pronunciation dictionary,
    Griffin-Lim previews) and on four pre-phonemized lines (``--vocoder``,
    ``--control``), the plain-text run once more as its own process (as
@@ -163,8 +173,9 @@ result line):
    batch, K5 3 per pass; the profiled request's counted on the device),
    the graphs the warm-up captured (an audio and a mel graph a batch
    size, symbol bucket, transform and output bucket, a FiLM graph a batch
-   size and reference bucket of the bank), their ms a capture and the
-   pool's bytes, and no capture after the warm-up;
+   size and reference bucket of the bank; the generator's own graph of
+   the streamer's window), their ms a capture and the pool's bytes, and
+   no capture after the warm-up;
 9. preprocessing as users run it (``preprocessing``): a raw two-speaker
    corpus (2 x 32 utterances of 2-10 s, wavs, transcripts and MFA-style
    TextGrids, one with an ``<unk>`` word) written here with numpy;
@@ -185,11 +196,16 @@ result line):
    6 under an NCCL process group of one (validation, checkpoints and the
    benchmark hook at 3 and 6; K1-K3 counters around the run; the hook's
    mels and previews checked, its seconds and the graphs its engine
-   captures anew after each ``update_params``), its first step against
-   one without a group, resume from 3 against the uninterrupted 6,
+   captures anew after each ``update_params``), its first 3 steps (two
+   captures and a replay: two graphs a step around the all-reduce)
+   against the same without a group (one graph a step), bit-equal, resume from 3 against the uninterrupted 6,
    SIGTERM to the CLI as its own process, the loop timed and profiled
-   with the default loader beside ``make_train_step`` alone from 6, the
-   counters around one step and one validation pass, the learning check
+   with the default loader beside ``make_train_step`` alone from 6 (every
+   step and validation batch a graph replay after its signature's
+   first), the counters around one replayed step and one replayed
+   validation pass and both profiled (12 x 3 K2 and K3 a step, 12 K1 a
+   validation batch, on the device), validation ms a batch, the learning
+   check
    (the validation mel L1 must halve), ``cli.synthesize`` and
    ``cli.training fine_tune`` on the trained checkpoint;
 11. vocoder training as users run it (``vocoder_training``), on the
@@ -235,6 +251,17 @@ result line):
    captures (``launches_replayed_derived``) and those counted in the
    profiler's trace of the main path's profiled round
    (``launches_on_device``).
+
+    python3 chip_smoke.py --extraction-processes N
+
+runs the CPU half of the style extraction's magnitude (``re^2 + im^2 +
+1e-9``, its square root) on ``angry_ref.wav`` in N fresh processes that
+hold a CUDA context, alternating a process that calls the square root
+first (as a process did before ``ops/mel.py`` ran its vector math on one
+element) with one that goes through ``mel.cpu_vector_math_ready`` first:
+each op's output against the same op run again on one thread, one
+``extraction process`` line each and an ``extraction processes``
+summary; exits 1 if a process that ran the warm-up moved.
 
     python3 chip_smoke.py --ab-train PARENT_DIR
 
@@ -292,6 +319,7 @@ false. It imports nothing of JAX and nothing of ``daft_exprt_tpu``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -301,6 +329,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 import warnings
 from pathlib import Path
 
@@ -309,6 +338,7 @@ import torch
 
 from daft_exprt_tpu_torch.config import HyperParams
 from daft_exprt_tpu_torch.inference.engine import InferenceEngine
+from daft_exprt_tpu_torch.inference.graphs import GraphCache
 from daft_exprt_tpu_torch.inference.inputs import collate_inference_batch
 from daft_exprt_tpu_torch.models.daft_exprt import DaftExprt
 from daft_exprt_tpu_torch.models.modules import FFTBlock, init_parameters
@@ -321,7 +351,8 @@ from daft_exprt_tpu_torch.ops.fft_block import (fft_block_plain,
                                                 fused_fft_block)
 from daft_exprt_tpu_torch.ops.mrf_vocoder import fused_mrf
 from daft_exprt_tpu_torch.symbols import SYMBOLS_ENGLISH
-from daft_exprt_tpu_torch.training.step import make_train_step
+from daft_exprt_tpu_torch.training.step import (TRAIN_CAPTURED,
+                                                make_train_step)
 from daft_exprt_tpu_torch.training.trainer import Trainer
 from daft_exprt_tpu_torch.utils import prefetch_iterator
 from daft_exprt_tpu_torch.vocoder.hifigan import V1_CONFIG, HiFiGanGenerator
@@ -2236,11 +2267,40 @@ def profile_audio(engine, request):
 STREAM_REL_TOL = 1e-2
 
 
+def eager_cache(device):
+    """A graph cache whose entries run eagerly on the card (the CPU's
+    bookkeeping): the eager side of a replay's comparison."""
+    cache = GraphCache(device)
+    cache.cuda = False
+    return cache
+
+
+@contextlib.contextmanager
+def eager_vocoder(gen, cache):
+    """``gen.replayed`` through ``cache`` (``eager_cache``), the
+    generator's own cache put back after."""
+    gen.graphs()  # current, made if missing
+    saved = gen._graphs
+    gen._graphs = (saved[0], cache)
+    try:
+        yield
+    finally:
+        gen._graphs = saved
+
+
+STREAM_ROUNDS = 5  # one window eager, replayed, replayed, eager a round
+
+
 def stream_utterance(engine, gen, request):
     """One long utterance (the longest row of the overflow request's mel)
-    through StreamingVocoder, against vocode_mels of the same mel padded
-    by the halo; time to the first chunk and total, after one warm-up
-    stream."""
+    through StreamingVocoder, every window a replay of the generator's
+    window graph: its chunks bit-equal to the same stream with every
+    window run eagerly, and within ``STREAM_REL_TOL`` of vocode_mels of
+    the same mel padded by the halo (a halo of 1 the control); K5's
+    launches of a replayed stream none at the wrappers and 3 a window on
+    the device (profiled); time to the first chunk and total, after one
+    warm-up stream, replayed and eager; one window's dispatch and copy
+    replayed against eager in alternating rounds."""
     from daft_exprt_tpu_torch.vocoder.hifigan import vocode_mels
     from daft_exprt_tpu_torch.vocoder.streaming import StreamingVocoder
 
@@ -2252,23 +2312,62 @@ def stream_utterance(engine, gen, request):
     mel = mel[b, :, :T]
     sv = StreamingVocoder(gen)
     ref = vocode_mels(gen, [mel], bucket=T + sv.halo)[0]
-    sv.vocode(mel)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    chunks, first = [], None
-    for chunk in sv.stream(mel):
-        if first is None:
-            first = time.perf_counter() - t0
-        chunks.append(chunk)
-    total = time.perf_counter() - t0
+    sv.vocode(mel)  # the window's eager pass and capture
+
+    def timed_stream():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chunks, first = [], None
+        for chunk in sv.stream(mel):
+            if first is None:
+                first = time.perf_counter() - t0
+            chunks.append(chunk)
+        return chunks, first, time.perf_counter() - t0
+
+    vg = vocoder_graphs(gen)
+    captures = vg.graphs.captures
+    before = _counts(vg)
+    chunks, first, total = timed_stream()
+    launches = _launches(before, vg)
+    eager = eager_cache(gen.device)
+    with eager_vocoder(gen, eager):
+        sv.vocode(mel)  # the eager entry's static input made
+        eager_chunks, eager_first, eager_total = timed_stream()
+    bit_equal = len(chunks) == len(eager_chunks) and all(
+        np.array_equal(a, b) for a, b in zip(chunks, eager_chunks))
     got = np.concatenate(chunks)
     if got.shape != ref.shape:
         raise AssertionError(f"stream {got.shape} vs {ref.shape}")
+    prof = profile_kernels(lambda: list(sv.stream(mel)),
+                           {"k5_ms": K5_KERNELS,
+                            "k5_tensor_core_ms": K5_TC_KERNELS})
+    # one window: dispatch, copy and wait, replayed against eager
+    window = np.full((mel.shape[0], sv.window), np.log(1e-5), np.float32)
+    window[:, :min(T, sv.window)] = mel[:, :sv.window]
+    buffers = sv._buffers()
+
+    def one_window():
+        sv._dispatch(window, slice(0, sv.chunk * sv.up), *buffers[0])()
+
+    def in_eager():
+        with eager_vocoder(gen, eager):
+            one_window()
+    window_ms = alternating_ms({"eager": in_eager, "replayed": one_window},
+                               rounds=STREAM_ROUNDS)
+    recaptured = vg.graphs.captures - captures
     control = StreamingVocoder(gen, halo_frames=1).vocode(mel)
     report = {"frames": T, "chunk_frames": sv.chunk, "halo_frames": sv.halo,
               "windows": len(chunks), "first_chunk_ms": first * 1e3,
               "total_ms": total * 1e3,
+              "eager_first_chunk_ms": eager_first * 1e3,
+              "eager_total_ms": eager_total * 1e3,
+              "window_ms": window_ms,
               "x_realtime": got.size / SAMPLE_RATE / total,
+              "replays_equal_eager": bit_equal,
+              "captures_after_warm_up": recaptured,
+              "launches": launches,
+              "graphs": graph_report(vg),
+              "profile": prof,
               "max_abs_err": float(np.abs(got - ref).max()),
               "rel_l2": _np_rel_l2(got, ref),
               "control_rel_l2": _np_rel_l2(control, ref),
@@ -2276,6 +2375,11 @@ def stream_utterance(engine, gen, request):
     print("stream", json.dumps(report), flush=True)
     if not report["rel_l2"] <= STREAM_REL_TOL < report["control_rel_l2"]:
         raise AssertionError(f"stream differs from vocode_mels: {report}")
+    if not bit_equal or recaptured or launches["k5"] != 0 \
+            or launches["k5_replayed"] != 3 * len(chunks):
+        raise AssertionError(f"replayed stream: {report}")
+    check_on_device(prof, {"k5": 3 * len(chunks), "k1": 0},
+                    "the replayed stream")
     return report
 
 
@@ -2658,6 +2762,13 @@ def graph_warmup(model, vocoder, smi):
     return warm
 
 
+def vocoder_graphs(gen):
+    """``gen``'s graph cache (``HiFiGanGenerator.replayed``: the
+    streamer's window, ``vocode_mels``' buckets) where ``_counts`` reads
+    an engine's."""
+    return types.SimpleNamespace(graphs=gen.graphs())
+
+
 def counted(fn, *engines):
     """fn's result and the K1 launches it made, (all, tensor-core): at the
     wrappers plus, derived, those of the ``engines``' graph replays (see
@@ -2740,21 +2851,30 @@ def serve_wide(vocoder):
         wide_head_hparams(batch_size=16, accumulation_steps=1), rng, 128,
         768).items()}
     mask = torch.ones(16, device="cuda")
-    step(batch, mask)  # warm-up
+    eager_step = make_eval_step(model, hp)
+    eager_step.graphs.cuda = False  # its entries run eagerly on the card
+    eager = eager_step(batch, mask)
+    step(batch, mask)  # warm-up: an eager pass, then the capture
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    metrics, (k1, k1_tc) = counted(lambda: step(batch, mask))
+    metrics, (k1, k1_tc) = counted(lambda: step(batch, mask), step)
     seconds = time.perf_counter() - t0
+    bit_equal = all(torch.equal(metrics[k], eager[k]) for k in eager)
     metrics = {k: float(v) for k, v in metrics.items()}
     prof = profile_kernels(lambda: step(batch, mask), K1_GROUPS)
     report["eval"] = {"B": 16, "L": 128, "T": 768, "step_ms": seconds * 1e3,
                       "k1_launches": k1, "k1_tensor_core_launches": k1_tc,
+                      "replay_equals_eager": bit_equal,
+                      "graphs": graph_report(step),
                       "metrics": metrics, "profile": prof}
     print("wide eval step", json.dumps(report["eval"]), flush=True)
     if k1 != n_blocks or k1_tc != k1 or metrics["count"] != 16 \
+            or not bit_equal or step.graphs.replays < 2 \
             or not all(np.isfinite(v) for v in metrics.values()):
         raise AssertionError(f"wide eval step: {report['eval']}")
     k1_all_tensor_core(prof, "the wide eval step")
+    check_on_device(prof, {"k1": n_blocks, "k5": 0},
+                    "the replayed wide eval step")
     return report
 
 
@@ -2822,6 +2942,19 @@ TRAIN_COUNTERS = {
 }
 
 
+def _train_replayed(*caches):
+    """Derived, by ``TRAIN_COUNTERS`` name: the launches the ``caches``'
+    replays ran, each replay adding what its capture recorded (a replay
+    runs no wrapper)."""
+    replayed = {}
+    for c in caches:
+        for key, v in zip(c.counters, c.replayed):
+            replayed[key] = replayed.get(key, 0) + v
+    return {name: replayed.get((fn, attr.replace("launches", "captured")),
+                               0)
+            for name, (fn, attr) in TRAIN_COUNTERS.items()}
+
+
 def expected_launches(conv_ff, n, tensor_core):
     """The training counters when K2 and the conv-FF kernel ``conv_ff``
     launched n times in each direction, the other conv-FF kernel never,
@@ -2862,91 +2995,253 @@ def train_batch(hp, rng, L, T, device="cuda"):
         for k, v in batch.items()}
 
 
-def train(hp, conv_ff, warmup=2, steps=5):
-    """Optimizer steps at full width through make_train_step, with the
-    training kernels' launch counters read around the timed steps: K2 and
-    the conv-FF kernel ``conv_ff`` (``"conv_ff_train"``, K3, or
-    ``"conv_ff_train_blocked"``, K4) once per FFT block and micro-batch in
-    each direction, the other conv-FF kernel and K1 never; and the host
-    time K2's launches spent encoding their TMA tensor maps."""
-    torch.cuda.reset_peak_memory_stats()
+# one kernel a wrapper call of the training kernels' tensor-core
+# instances: K2's forward and dq launches, the conv-FF's LayerNorm rows
+# (K3 and K4 share the kernels; the wrappers' counters tell them apart)
+TRAIN_ON_DEVICE = {"attention_train_forward": r"(?<!\w)attn_fwd_wgmma_kernel<",
+                   "attention_train_backward":
+                       r"(?<!\w)attn_bwd_dq_wgmma_kernel<",
+                   "conv_ff_forward": r"(?<!\w)tc_rows_fwd_kernel<",
+                   "conv_ff_backward": r"(?<!\w)tc_rows_bwd_kernel<"}
+STEP_CHECKS = 4   # steps of each run that holds replays against eager steps
+STEP_ROUNDS = 3   # timing rounds: eager steps, then replayed steps
+
+
+def train_on_device(prof):
+    """The training kernels' launches counted in a profiled run's trace
+    (``TRAIN_ON_DEVICE``), replays included."""
+    counts = {}
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for name, pattern in TRAIN_ON_DEVICE.items():
+            if re.search(pattern, ev.key):
+                counts[name] = counts.get(name, 0) + ev.count
+    return {name: counts.get(name, 0) for name in TRAIN_ON_DEVICE}
+
+
+def _step_run(hp, batch, seeds, eager=False, frozen=False):
+    """``len(seeds)`` steps of a fresh seed-0 model through
+    ``make_train_step``, step i's generator seeded with ``seeds[i]`` (with
+    ``frozen`` the first seed every step): through its graphs, or with
+    ``eager`` through the same entries run eagerly (the cache's CPU
+    bookkeeping, on the card). :return: (metric rows (steps,
+    len(TRAIN_METRICS)) on the host, parameters after, the model, the
+    step, its generator)"""
+    from daft_exprt_tpu_torch.training.step import TRAIN_METRICS
+
     model = DaftExprt(hp, seed=0)
     step = make_train_step(model, hp)
+    step.graphs.cuda = not eager
+    gen = torch.Generator(device="cuda")
+    rows = []
+    for i, seed in enumerate(seeds):
+        gen.manual_seed(seeds[0] if frozen else seed)
+        m = step(batch, gen, i + 1)
+        rows.append(torch.stack([m[k] for k in TRAIN_METRICS]))
+    torch.cuda.synchronize()
+    return (torch.stack(rows).cpu(), [p.detach().clone() for p in
+                                      model.parameters()], model, step, gen)
+
+
+def _max_diff(a, b):
+    return max(float((x.float() - y.float()).abs().max())
+               for x, y in zip(a, b))
+
+
+def train(hp, conv_ff, warmup=2, steps=5):
+    """Optimizer steps at full width through make_train_step, every step
+    after a batch signature's first one CUDA graph replay:
+
+    - ``STEP_CHECKS`` steps through the graphs against the same steps run
+      eagerly on the card, twice, from the seed-0 weights and the
+      generator seeds of iterations 1.. (``dropout_seed``): metrics and
+      parameters bit-equal to the eager run's, or within the two eager
+      runs' own difference where they differ; a control whose generator
+      is reseeded with step 1's seed every step (frozen draws) must
+      differ from the eager run;
+    - the training kernels' launches of the graph run: at the wrappers
+      the first (eager) step's alone, K2 and the conv-FF kernel
+      ``conv_ff`` (``"conv_ff_train"``, K3, or ``"conv_ff_train_blocked"``,
+      K4) once per FFT block and micro-batch in each direction, as many
+      recorded by its capture, none at a replay (derived: as many a
+      replay), the other conv-FF kernel and K1 never; on the device,
+      counted in the trace of a profiled replayed step, as many a step;
+    - K2's tensor maps: encoded at the eager step and at the capture, none
+      at a replay;
+    - ``STEP_ROUNDS`` rounds of ``steps`` eager then ``steps`` replayed
+      steps after ``warmup`` of each (host clock, medians), and one
+      profiled step of each (device busy, idle share).
+    """
+    from daft_exprt_tpu_torch.training.step import dropout_seed
+
+    torch.cuda.reset_peak_memory_stats()
     rng = np.random.default_rng(5)
     L, T = 128, 768
     batch = train_batch(hp, rng, L, T)
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    start = [p.detach().clone() for p in model.parameters()]
-    for i in range(warmup):
-        step(batch, gen, i + 1)
-    torch.cuda.synchronize()
+    seeds = [dropout_seed(hp, i + 1) for i in range(STEP_CHECKS)]
+    n = fft_blocks(hp) * hp.accumulation_steps
+    # the graph run: counters from zero around it
     for fn, attr in TRAIN_COUNTERS.values():
+        setattr(fn, attr, 0)
+    for fn, attr in TRAIN_CAPTURED:
         setattr(fn, attr, 0)
     fused_fft_block.launches = 0
     maps_before = tc_map_stats()
-    t0 = time.perf_counter()
-    metrics = [step(batch, gen, warmup + i + 1) for i in range(steps)]
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    maps, encode_ns = (a - b for a, b in zip(tc_map_stats(), maps_before))
+    graph_rows, graph_params, model, step, gen = _step_run(hp, batch, seeds)
+    maps, _ = (a - b for a, b in zip(tc_map_stats(), maps_before))
     launches = {name: getattr(fn, attr)
                 for name, (fn, attr) in TRAIN_COUNTERS.items()}
-    n_blocks = fft_blocks(hp)
-    expect = n_blocks * hp.accumulation_steps * steps
-    want = expected_launches(conv_ff, expect, tensor_core=True)
-    print(f"training: launches {json.dumps(launches)} (expected "
-          f"{json.dumps(want)}), K1 {fused_fft_block.launches} (expected 0)",
+    captured = dict(zip(TRAIN_COUNTERS, (
+        getattr(fn, attr.replace("launches", "captured"))
+        for fn, attr in TRAIN_COUNTERS.values())))
+    replayed = _train_replayed(step.graphs)
+    want = expected_launches(conv_ff, n, tensor_core=True)
+    want_replayed = expected_launches(conv_ff, n * (STEP_CHECKS - 1),
+                                      tensor_core=True)
+    print(f"training: launches at the wrappers {json.dumps(launches)}, "
+          f"captured {json.dumps(captured)}, replayed (derived) "
+          f"{json.dumps(replayed)} (expected {json.dumps(want)}, "
+          f"{json.dumps(want)}, {json.dumps(want_replayed)}), K1 "
+          f"{fused_fft_block.launches} (expected 0), graphs "
+          f"{len(step.graphs)}, captures {step.graphs.captures}",
           flush=True)
-    if launches != want or fused_fft_block.launches != 0:
-        raise AssertionError(f"training launches {launches}, K1 "
-                             f"{fused_fft_block.launches}")
+    if launches != want or captured != want or replayed != want_replayed \
+            or fused_fft_block.launches != 0 or step.graphs.captures != 1:
+        raise AssertionError(f"training launches {launches}, captured "
+                             f"{captured}, replayed {replayed}")
     # K2's tensor-core launches encode their maps anew: q/k/v forward, and
-    # q/k/v, the rounded g and the terms backward
-    if maps != 3 * launches["attention_train_forward_tensor_core"] \
-            + 5 * launches["attention_train_backward_tensor_core"]:
-        raise AssertionError(f"K2 encoded {maps} tensor maps")
-    rows = [{k: float(v) for k, v in m.items()} for m in metrics]
-    for r in rows:
-        if not all(np.isfinite(v) for v in r.values()):
-            raise AssertionError(f"non-finite training metrics {r}")
-    moved = sum(bool((a != p.detach()).any())
-                for a, p in zip(start, model.parameters()))
-    if moved != len(start):
-        raise AssertionError(f"{len(start) - moved} parameters did not move")
-    frames = int(batch["output_lengths"].sum())  # over accumulation x B
-    report = {"steps": steps, "step_ms": seconds / steps * 1e3,
-              "steps_per_s": steps / seconds,
-              "mel_frames_per_s": frames * steps / seconds,
-              "frames_per_step": frames, "launches": launches,
-              "loss": [r["loss"] for r in rows],
-              "grad_norm": [r["grad_norm"] for r in rows],
-              "params_moved": moved,
-              "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
-              # K2's TMA tensor maps, encoded on the host at every launch
-              "k2_tensor_maps": {
-                  "per_step": maps / steps,
-                  "encode_us_per_step": encode_ns / steps / 1e3,
-                  "encode_ns_per_map": encode_ns / max(maps, 1)}}
-    print("training", json.dumps(report), flush=True)
-    it = warmup + steps + 1
+    # q/k/v, the rounded g and the terms backward; the eager step's and
+    # the capture's, none at a replay
+    k2_maps = 2 * (3 * launches["attention_train_forward_tensor_core"]
+                   + 5 * launches["attention_train_backward_tensor_core"])
+    if maps != k2_maps:
+        raise AssertionError(f"K2 encoded {maps} tensor maps, expected "
+                             f"{k2_maps}")
+
+    eager = [_step_run(hp, batch, seeds, eager=True)[:2] for _ in range(2)]
+    control_rows = _step_run(hp, batch, seeds, frozen=True)[0]
+    spread = {"metrics": _max_diff([eager[0][0]], [eager[1][0]]),
+              "params": _max_diff(eager[0][1], eager[1][1])}
+    diff = {"metrics": _max_diff([graph_rows], [eager[0][0]]),
+            "params": _max_diff(graph_params, eager[0][1])}
+    control = _max_diff([control_rows[1:]], [eager[0][0][1:]])
+    equality = {"steps": STEP_CHECKS, "replays": STEP_CHECKS - 1,
+                "graphs_vs_eager_max_abs": diff,
+                "eager_vs_eager_max_abs": spread,
+                "bit_equal": diff["metrics"] == diff["params"] == 0.0,
+                "frozen_seed_control_max_abs": control,
+                "loss_graphs": graph_rows[:, 0].tolist(),
+                "loss_eager": eager[0][0][:, 0].tolist(),
+                "loss_frozen_seed": control_rows[:, 0].tolist()}
+    print("training: replays against eager steps", json.dumps(equality),
+          flush=True)
+    if not all(diff[k] <= spread[k] for k in diff) or not control > 0.0 \
+            or not torch.isfinite(graph_rows).all():
+        raise AssertionError(f"replayed steps against eager: {equality}")
+    del eager
+
+    # eager steps (the graph run's entries off) against replays, timed in
+    # alternating rounds on one seeded batch
+    eager_model, eager_step, eager_gen = _step_run(
+        hp, batch, seeds[:1], eager=True)[2:]
+
+    def run_steps(st, g, k, it0):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(k):
+            g.manual_seed(dropout_seed(hp, it0 + i))
+            st(batch, g, it0 + i)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / k * 1e3
+
+    it = STEP_CHECKS + 1
+    run_steps(eager_step, eager_gen, warmup, it)
+    run_steps(step, gen, warmup, it)
+    eager_ms, graph_ms = [], []
+    maps_before = tc_map_stats()
+    for _ in range(STEP_ROUNDS):
+        eager_ms.append(run_steps(eager_step, eager_gen, steps, it))
+        graph_ms.append(run_steps(step, gen, steps, it))
+    # an eager bf16 step encodes 3 maps a K2 forward and 5 a backward;
+    # what is left is the replays'
+    maps_replays = tc_map_stats()[0] - maps_before[0] \
+        - (3 * n + 5 * n) * STEP_ROUNDS * steps
     groups = {"k2_ms": K2_KERNELS, "k2_tensor_core_ms": K2_TC_KERNELS}
     ff = "k3" if conv_ff == "conv_ff_train" else "k4"
     groups.update({f"{ff}_ms": K3_KERNELS if ff == "k3" else K4_KERNELS,
                    f"{ff}_tensor_core_ms": CONV_FF_TC_KERNELS})
-    report["profile"] = prof = profile_kernels(
-        lambda: step(batch, gen, it), groups)
-    if prof is not None:
-        prof["k2_share"] = prof["k2_ms"] / prof["device_busy_ms"]
-    print("training profile", json.dumps(prof), flush=True)
-    if prof is not None and not 0 < prof["k2_tensor_core_ms"] \
-            == prof["k2_ms"]:
-        raise AssertionError("K2's device time in the training step is not "
-                             "all on its tensor-core kernels")
-    if prof is not None \
-            and not 0 < prof[f"{ff}_tensor_core_ms"] == prof[f"{ff}_ms"]:
-        raise AssertionError(f"{ff.upper()}'s device time in the training "
-                             "step is not all on its tensor-core kernels")
-    return report, launches
+    profiles = {}
+    for label, st, g in (("replayed", step, gen),
+                         ("eager", eager_step, eager_gen)):
+        g.manual_seed(dropout_seed(hp, it))
+        prof, wall_ms = profiled(lambda: st(batch, g, it))
+        profiles[label] = kernel_report(prof, wall_ms, groups)
+        if profiles[label] is not None:
+            profiles[label]["train_on_device"] = train_on_device(prof)
+            profiles[label]["k2_share"] = profiles[label]["k2_ms"] \
+                / profiles[label]["device_busy_ms"]
+    prof = profiles["replayed"]
+    print("training profile", json.dumps(profiles), flush=True)
+    on_device = prof and prof["train_on_device"]
+    want_device = {name: n for name in TRAIN_ON_DEVICE}
+    if prof is not None and on_device != want_device:
+        raise AssertionError(f"a replayed step's training kernels on the "
+                             f"device: {on_device}, expected {want_device}")
+    if maps_replays != 0:
+        raise AssertionError(f"replayed steps encoded {maps_replays} K2 "
+                             "tensor maps")
+    for p in profiles.values():
+        if p is not None and not 0 < p["k2_tensor_core_ms"] == p["k2_ms"]:
+            raise AssertionError("K2's device time in the training step is "
+                                 "not all on its tensor-core kernels")
+        if p is not None \
+                and not 0 < p[f"{ff}_tensor_core_ms"] == p[f"{ff}_ms"]:
+            raise AssertionError(f"{ff.upper()}'s device time in the "
+                                 "training step is not all on its "
+                                 "tensor-core kernels")
+    frames = int(batch["output_lengths"].sum())  # over accumulation x B
+    step_ms = float(np.median(graph_ms))
+    g = step.graphs
+    report = {"steps": steps, "rounds": STEP_ROUNDS,
+              "step_ms": step_ms, "eager_step_ms": float(np.median(eager_ms)),
+              "step_ms_rounds": graph_ms, "eager_step_ms_rounds": eager_ms,
+              "steps_per_s": 1e3 / step_ms,
+              "mel_frames_per_s": frames * 1e3 / step_ms,
+              "frames_per_step": frames, "launches": launches,
+              "launches_captured": captured,
+              "launches_replayed_derived": replayed,
+              "launches_on_device_per_step": on_device,
+              "graphs": {"graphs": len(g), "captures": g.captures,
+                         "capture_s": g.capture_seconds,
+                         "pool_bytes": g.pool_bytes()},
+              "replays_against_eager": equality,
+              "loss": graph_rows[:, 0].tolist(),
+              "grad_norm": graph_rows[:, -2].tolist(),
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+              # K2's TMA tensor maps: encoded on the host at the eager
+              # step and at the capture, none at a replay
+              "k2_tensor_maps": {"graph_run": maps,
+                                 "per_replayed_step": maps_replays
+                                 / (STEP_ROUNDS * steps)},
+              "profile": prof, "eager_profile": profiles["eager"]}
+    print("training", json.dumps({k: v for k, v in report.items()
+                                  if "profile" not in k}), flush=True)
+    def device_count(name):
+        if on_device is None:
+            return None
+        if name.startswith("attention"):
+            return on_device[name]
+        ran = name.rsplit("_", 1)[0] == conv_ff
+        return on_device["conv_ff_" + name.rsplit("_", 1)[1]] if ran else 0
+
+    all_launches = {**launches,
+                    **{f"{k}_captured": v for k, v in captured.items()},
+                    **{f"{k}_replayed": v for k, v in replayed.items()},
+                    **{f"{k}_on_device": device_count(k) for k in launches
+                       if not k.endswith("tensor_core")}}
+    del model, eager_model
+    return report, all_launches
 
 
 def small_wide_hparams(**overrides):
@@ -3291,6 +3586,43 @@ def extract_style_bank(hp, tmp, smi):
     return bank, rows
 
 
+EXTRACTION_PROCESSES = 3
+EXTRACTION_SCRIPT = """
+import json, shutil, tempfile
+from pathlib import Path
+import chip_smoke as cs
+tmp = Path(tempfile.mkdtemp(prefix="extraction_"))
+try:
+    _, rows = cs.extract_style_bank(cs.flagship_hparams(), tmp, "")
+finally:
+    shutil.rmtree(tmp, ignore_errors=True)
+print("EXTRACTION", json.dumps(max(r["energy_max_rel_err"] for r in rows)))
+"""
+
+
+def extraction_processes(n=EXTRACTION_PROCESSES):
+    """``extract_style_bank`` (card against CPU, frame energy within
+    ``ENERGY_REL_TOL``) again in ``n`` fresh processes, where it is the
+    first card work: the largest energy error of each; fails if one
+    fails."""
+    errs = []
+    for _ in range(n):
+        run = subprocess.run([sys.executable, "-c", EXTRACTION_SCRIPT],
+                             cwd=ROOT, capture_output=True, text=True,
+                             timeout=300)
+        lines = [ln for ln in run.stdout.splitlines()
+                 if ln.startswith("EXTRACTION ")]
+        if run.returncode != 0 or not lines:
+            raise AssertionError(f"style extraction in a fresh process: "
+                                 f"{run.stdout[-2000:]} {run.stderr[-2000:]}")
+        errs.append(json.loads(lines[-1].split(" ", 1)[1]))
+    report = {"processes": n, "energy_max_rel_err": errs,
+              "limit": ENERGY_REL_TOL}
+    print("style extraction in fresh processes", json.dumps(report),
+          flush=True)
+    return report
+
+
 def time_griffin_lim(hp, mels, smi):
     """Griffin-Lim previews on the card (NNLS + 30 iterations, host clock
     around calls that return host arrays): one utterance and a batch of
@@ -3442,6 +3774,7 @@ def text_serving(smi):
         report = {"card": smi}
 
         bank, report["extraction"] = extract_style_bank(hp, tmp, smi)
+        report["extraction_fresh_processes"] = extraction_processes()
 
         # the CLI, in this process: plain text through a tiny dictionary
         # (HyperParams finds it under $HOME/Documents/MFA) with
@@ -3524,7 +3857,15 @@ def text_serving(smi):
                 or engine.graphs.captures != len(engine.graphs):
             raise AssertionError(f"server warm-up captured "
                                  f"{report['warmup_graphs']}")
-        warm_captures = engine.graphs.captures
+        # the streamer's window: one graph of the generator's own, captured
+        # by the warm-up's stream
+        vg = vocoder_graphs(service.streamer.gen)
+        report["warmup_graphs"]["vocoder"] = graph_report(vg)
+        if len(vg.graphs) != 1 or vg.graphs.captures != 1:
+            raise AssertionError(f"server warm-up captured "
+                                 f"{report['warmup_graphs']['vocoder']} "
+                                 "vocoder graphs, expected the window's")
+        warm_captures = engine.graphs.captures + vg.graphs.captures
         # K1 launches: the phoneme encoder's and decoder's blocks a pass,
         # the prosody encoder's a FiLM batch
         per_pass = hp.phoneme_encoder["nb_blocks"] \
@@ -3532,7 +3873,7 @@ def text_serving(smi):
         per_film = hp.prosody_encoder["nb_blocks"]
         fused_fft_block.launches = fused_fft_block.tc_launches = 0
         fused_mrf.launches = fused_mrf.tc_launches = 0
-        start = _counts(engine)
+        start = _counts(engine, vg)
         status, _, data, _ = _http(port, "GET", "/health")
         health = json.loads(data)
         status2, _, data, _ = _http(port, "GET", "/styles")
@@ -3577,14 +3918,14 @@ def text_serving(smi):
             rows.append(row)
         # /stream: the acoustic pass, then HiFi-GAN window by window; time
         # to first audio on the server's clock (/stats)
-        before = _counts(engine)
+        before = _counts(engine, vg)
         status, headers, data, seconds = _http(port, "POST", "/stream", {
             "text": TTS_PARAGRAPH, "speaker_id": 1, "style": "angry_ref"})
         stream = {"request": "stream_paragraph", "status": status,
                   "frames": int(headers["x-mel-frames"]),
                   "samples": int(_pcm(data).size),
-                  "latency_ms": seconds * 1e3, **_launches(before, engine),
-                  "card": smi}
+                  "latency_ms": seconds * 1e3,
+                  **_launches(before, engine, vg), "card": smi}
         _, _, data, _ = _http(port, "GET", "/stats")
         stats = json.loads(data)
         stream["ttfa_ms"] = stats["p50_ttfa_ms"]
@@ -3592,12 +3933,13 @@ def text_serving(smi):
         if status != 200 or stream["samples"] != stream["frames"] * HOP \
                 or stats["stream_requests"] != 1 \
                 or stats["requests"] != len(rows) + 1 \
-                or stream["k5_total"] == 0 or stream["k5_total"] % 3:
+                or stream["k5_total"] == 0 or stream["k5_total"] % 3 \
+                or stream["k5"] != 0:
             raise AssertionError(f"/stream {stream} /stats {stats}")
-        serving = _launches(start, engine)
+        serving = _launches(start, engine, vg)
         # a fresh server's first requests of every kind are replays
         report["captures_after_warmup"] = engine.graphs.captures \
-            - warm_captures
+            + vg.graphs.captures - warm_captures
         if report["captures_after_warmup"]:
             raise AssertionError(f"{report['captures_after_warmup']} "
                                  "graphs captured after the warm-up")
@@ -3849,6 +4191,7 @@ LEARNING_RATIO = 0.5       # the validation mel L1 must at least halve
 # this phase on an NVIDIA H100 80GB HBM3 at 700 W read them (PERF.md); a
 # moment reset or a lost all-reduce would move them by ~lr
 RESUME_PARAM_TOL = RESUME_MOMENT_REL_TOL = FIRST_STEP_TOL = 0.0
+FIRST_STEPS = 3  # NCCL against no group: two captures, then a replay
 
 
 def soak_overrides():
@@ -3889,12 +4232,26 @@ def benchmark_dictionary(path):
     return len(words)
 
 
-def _train_counts():
-    counts = {name: getattr(fn, attr)
+def _train_counts(*caches):
+    """The training kernels' and K1's launches: at the wrappers, plus
+    those the ``caches``' replays ran (derived from their captures; the
+    train and eval steps' graphs)."""
+    replayed = _train_replayed(*caches)
+    counts = {name: getattr(fn, attr) + replayed[name]
               for name, (fn, attr) in TRAIN_COUNTERS.items()}
-    counts["k1"], counts["k1_tensor_core"] = (fused_fft_block.launches,
-                                              fused_fft_block.tc_launches)
+    k1 = {}
+    for c in caches:
+        for (obj, attr), v in zip(c.counters, c.replayed):
+            if obj is fused_fft_block:
+                k1[attr] = k1.get(attr, 0) + v
+    counts["k1"] = fused_fft_block.launches + k1.get("captured", 0)
+    counts["k1_tensor_core"] = fused_fft_block.tc_launches \
+        + k1.get("tc_captured", 0)
     return counts
+
+
+def _counts_since(before, *caches):
+    return {k: v - before[k] for k, v in _train_counts(*caches).items()}
 
 
 def _zero_counts():
@@ -4287,12 +4644,14 @@ def training_runtime(smi, train_report, keep_fine_tuning_dataset=None):
         base = ["train", "--experiments_dir", str(exps), "--checkpoint",
                 str(start)]
 
-        # 1. the first step under NCCL (world of one) and without a group
+        # 1. the first steps under NCCL (world of one: the step's two
+        # graphs around the all-reduce) and without a group (one graph):
+        # both batch signatures of an epoch captured, then a replay
         first = {}
         for name, group in (("first_nccl", True), ("first_plain", False)):
             write_experiment(exps, name, corpus, **flagship)
             argv = base + ["--experiment_name", name, "--max_iterations",
-                           "1", "--no_benchmark_synthesis"]
+                           str(FIRST_STEPS), "--no_benchmark_synthesis"]
             if group:
                 argv += ["--coordinator", f"localhost:{_free_port()}",
                          "--num_processes", "1", "--process_id", "0"]
@@ -4303,16 +4662,18 @@ def training_runtime(smi, train_report, keep_fine_tuning_dataset=None):
                 len(all_reduces))
         first_err = _max_abs_diff(first["first_nccl"][0],
                                   first["first_plain"][0])
-        report["first_step"] = {
+        report["first_steps"] = {
+            "iterations": FIRST_STEPS,
             "max_abs_diff": first_err, "limit": FIRST_STEP_TOL,
             "bit_equal": first_err == 0.0,
             "all_reduces": {k: v[1] for k, v in first.items()}}
-        print("training runtime: first step", json.dumps(
-            report["first_step"]), flush=True)
-        if first_err > FIRST_STEP_TOL or first["first_nccl"][1] != 1 \
+        print("training runtime: first steps", json.dumps(
+            report["first_steps"]), flush=True)
+        if first_err > FIRST_STEP_TOL \
+                or first["first_nccl"][1] != FIRST_STEPS \
                 or first["first_plain"][1] != 0:
-            raise AssertionError(f"first step NCCL vs no group: "
-                                 f"{report['first_step']}")
+            raise AssertionError(f"first steps NCCL vs no group: "
+                                 f"{report['first_steps']}")
 
         # 2. the main path: the CLI to 6 under NCCL, counters around it
         _zero_counts()
@@ -4322,7 +4683,7 @@ def training_runtime(smi, train_report, keep_fine_tuning_dataset=None):
             str(RUNTIME_ITERATIONS), "--coordinator",
             f"localhost:{_free_port()}", "--num_processes", "1",
             "--process_id", "0"])
-        launches = _train_counts()
+        launches = _train_counts(tr.train_step.graphs, tr.eval_step.graphs)
         ckpt_dir = exps / "flagship" / "checkpoints"
         files = sorted(p.name for p in ckpt_dir.iterdir())
         steps = RUNTIME_ITERATIONS * fft_blocks(hp) * hp.accumulation_steps
@@ -4426,34 +4787,59 @@ def training_runtime(smi, train_report, keep_fine_tuning_dataset=None):
         train_loader, val_loader = t.make_loaders()
         gen = torch.Generator(device=t.device).manual_seed(0)
         batch = next(train_loader.epoch(0))
+        caches = (t.train_step.graphs, t.eval_step.graphs)
+        t.train_step(batch, gen, TIMED_ITERATIONS + 1)  # its graph, if new
         torch.cuda.synchronize()
-        _zero_counts()
-        t.train_step(batch, gen, TIMED_ITERATIONS + 1)
-        per_step = _train_counts()
-        _zero_counts()
-        val = t.validate(val_loader)
-        per_validation = _train_counts()
+        before = _train_counts(*caches)
+        step_prof, step_wall = profiled(
+            lambda: t.train_step(batch, gen, TIMED_ITERATIONS + 2))
+        per_step = _counts_since(before, *caches)
+        step_device = train_on_device(step_prof)
         n_val_batches = sum(1 for _ in val_loader)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t.validate(val_loader)  # every signature captured in the loop
+        validation_ms = (time.perf_counter() - t0) * 1e3
+        before = _train_counts(*caches)
+        captures = t.eval_step.graphs.captures
+        val_prof, val_wall = profiled(lambda: t.validate(val_loader))
+        per_validation = _counts_since(before, *caches)
+        val_report = kernel_report(val_prof, val_wall, K1_GROUPS)
+        val = t.validate(val_loader)
         one_step = expected_launches("conv_ff_train",
                                      fft_blocks(hp) * hp.accumulation_steps,
                                      tensor_core=True)
         timed.update(validation_batches=n_val_batches,
+                     validation_ms=validation_ms,
+                     validation_ms_per_batch=validation_ms / n_val_batches,
                      launches_per_step=per_step,
+                     launches_per_step_on_device=step_device,
                      launches_per_validation=per_validation,
+                     validation_profile=val_report,
+                     eval_graphs=graph_report(t.eval_step),
+                     train_graphs=graph_report(t.train_step),
                      val_mel_l1=val["mel_spec_l1_loss"],
                      make_train_step={k: train_report.get(k) for k in (
-                         "step_ms", "profile")})
+                         "step_ms", "eager_step_ms", "profile")})
         print("training runtime: timed loop", json.dumps(timed), flush=True)
         k1_want = fft_blocks(hp) * n_val_batches
+        n = fft_blocks(hp) * hp.accumulation_steps
         check_launches(
-            "one step and one validation pass",
+            "one replayed step and one replayed validation pass",
             all(per_step[k] == v for k, v in one_step.items())
             and per_step["k1"] == 0
+            and step_device == {k: n for k in TRAIN_ON_DEVICE}
             and not any(per_validation[k] for k in TRAIN_COUNTERS)
             and per_validation["k1"] == k1_want
-            == per_validation["k1_tensor_core"],
-            f"per step {per_step} (expected {one_step}), per validation "
-            f"{per_validation} (expected K1 {k1_want}, all tensor-core)")
+            == per_validation["k1_tensor_core"]
+            and t.eval_step.graphs.captures == captures
+            and (val_report is None
+                 or val_report["on_device"]["k1"] == k1_want
+                 == val_report["on_device"]["k1_tensor_core"]),
+            f"per step {per_step} (expected {one_step}), on the device "
+            f"{step_device}; per validation {per_validation} (expected K1 "
+            f"{k1_want}, all tensor-core), on the device "
+            f"{val_report and val_report['on_device']}")
         report["timed"] = timed
         del t, train_loader, val_loader, batch
 
@@ -5073,6 +5459,7 @@ def train_from_pre_process(exps, name, hp):
             losses.append(float(metrics["loss"]))
             return metrics
         run.optimizer = step.optimizer
+        run.graphs = step.graphs
         return run
 
     trainer_mod.make_train_step = recording
@@ -5086,7 +5473,7 @@ def train_from_pre_process(exps, name, hp):
             "--process_id", "0"])
     finally:
         trainer_mod.make_train_step = make_train_step
-    launches = _train_counts()
+    launches = _train_counts(tr.train_step.graphs)
     steps = PRE_TRAIN_ITERATIONS * fft_blocks(hp) * hp.accumulation_steps
     want = expected_launches("conv_ff_train", steps, tensor_core=True)
     state, _, meta = load_checkpoint(str(
@@ -5541,20 +5928,21 @@ def vocoder_training(smi, dataset_dir, device="cuda"):
         trained = gen.state_dict()
         seed0 = HiFiGanGenerator(seed=0, device=device).state_dict()
         mel = np.load(sorted(Path(dataset_dir).glob("*/*.npy"))[0])
-        vocode_mels(gen, [mel])
+        vocode_mels(gen, [mel])  # an eager pass, then the capture
         _sync(device)
-        before = _counts()
+        before = _counts(vocoder_graphs(gen))
         wav, = vocode_mels(gen, [mel])
         served = {"mel_frames": int(mel.shape[1]),
-                  "launches": _launches(before),
+                  "launches": _launches(before, vocoder_graphs(gen)),
                   "finite": bool(np.isfinite(wav).all()),
                   "weights_moved_from_seed0": any(
                       not torch.equal(trained[k], v)
                       for k, v in seed0.items())}
         print("vocoder training: served", json.dumps(served), flush=True)
         check_launches("vocoding with the trained generator",
-                       served["launches"]["k5"] == 3
-                       == served["launches"]["k5_tensor_core"]
+                       served["launches"]["k5_total"] == 3
+                       == served["launches"]["k5_tensor_core_total"]
+                       == served["launches"]["k5_replayed"]
                        and served["finite"]
                        and served["weights_moved_from_seed0"], served)
         report["served"] = served
@@ -6069,6 +6457,69 @@ print("AB", json.dumps({
     "profiled_sentence_wall_ms": prof.get("wall_ms"),
     "profiled_sentence_busy_ms": prof.get("device_busy_ms")}))
 """
+EXTRACTION_OPS_SCRIPT = """
+import json, sys
+import numpy as np, torch
+import chip_smoke as cs
+from daft_exprt_tpu_torch.audio.io import load_wav
+from daft_exprt_tpu_torch.ops import mel
+torch.zeros(1, device="cuda")  # a CUDA context, as a server's process has
+if sys.argv[1] == "warmed":
+    mel.cpu_vector_math_ready()
+wav, _ = load_wav(str(cs.STYLE_BANK / "angry_ref.wav"), target_sr=22050)
+frames = mel.frame_signal(torch.as_tensor(wav)[None], 1024, 256) \\
+    * mel.hann_window_on(torch.device("cpu"), 1024)
+spec = torch.fft.rfft(frames, n=1024, dim=-1)
+
+def chain():
+    p, q = spec.real ** 2, spec.imag ** 2
+    s = p + q + 1e-9
+    return {"p": p, "q": q, "s": s, "sqrt": torch.sqrt(s)}
+
+first = chain()
+n = torch.get_num_threads()
+torch.set_num_threads(1)
+ref = chain()
+torch.set_num_threads(n)
+moved = {}
+for k, v in first.items():
+    d = (v - ref[k]).abs() / ref[k].abs().clamp_min(1e-30)
+    if d.max() > 0:
+        bad = torch.nonzero(d.reshape(-1) > 0)
+        moved[k] = {"elements": int(bad.numel()), "of": d.numel(),
+                    "max_rel_err": float(d.max())}
+print("EXTRACTION_OPS", json.dumps({"threads": n, "moved": moved}))
+"""
+
+
+def extraction_ops(n: int) -> int:
+    """``--extraction-processes``: the magnitude's CPU ops in ``n`` fresh
+    processes, bare and after ``cpu_vector_math_ready`` in turns."""
+    counts = {"bare": [0, 0], "warmed": [0, 0]}
+    worst = {"bare": 0.0, "warmed": 0.0}
+    for i in range(n):
+        variant = ("bare", "warmed")[i % 2]
+        run = subprocess.run([sys.executable, "-c", EXTRACTION_OPS_SCRIPT,
+                              variant], cwd=ROOT, capture_output=True,
+                             text=True, timeout=300)
+        lines = [ln for ln in run.stdout.splitlines()
+                 if ln.startswith("EXTRACTION_OPS ")]
+        if run.returncode != 0 or not lines:
+            print(f"extraction process {i} failed: {run.stderr[-2000:]}",
+                  flush=True)
+            return 1
+        row = json.loads(lines[-1].split(" ", 1)[1])
+        counts[variant][0] += 1
+        counts[variant][1] += bool(row["moved"])
+        worst[variant] = max([worst[variant]] + [
+            m["max_rel_err"] for m in row["moved"].values()])
+        print("extraction process", i, variant, json.dumps(row), flush=True)
+    report = {v: {"processes": c[0], "moved": c[1],
+                  "max_rel_err": worst[v]} for v, c in counts.items()}
+    print("extraction processes", json.dumps(report), flush=True)
+    return 1 if counts["warmed"][1] else 0
+
+
 AB_SCRIPTS = {"--ab-train": AB_TRAIN, "--ab-k1": AB_K1, "--ab-serve": AB_SERVE,
               "--ab-k2": AB_K2, "--ab-text": AB_TEXT}
 
@@ -6272,6 +6723,14 @@ def main(mode: str | None = None) -> int:
                          cuda_core_source="daft_exprt_tpu_torch/csrc/"
                                           "conv_ff_blocked.cu",
                          smem_bytes_by_width=k4_plan)
+        # the main run's first step is eager (its launches at the
+        # wrappers), its capture records as many, the replays run them
+        extra.update(
+            launches_captured=main_run[f"{name}_captured"],
+            launches_replayed_derived=main_run[f"{name}_replayed"],
+            launches_on_device=main_run[f"{name}_on_device"],
+            launches_on_device_in="one profiled replayed step",
+            launches_wide_captured=wide_launches[f"{name}_captured"])
         entries.append(kernel_entry(name, kernel, src, f"{ref}:{line}",
                                     main_run[name], rows, direction, library,
                                     launches_wide=wide_launches[name],
@@ -6323,9 +6782,9 @@ def main(mode: str | None = None) -> int:
         launches_vocoder_training_gan_step=vocoder_run["step"]["tf32"][
             "launches"]["k5"],
         launches_vocoder_training_served=vocoder_run["served"]["launches"][
-            "k5"],
+            "k5_total"],
         launches_vocoder_training_served_tensor_core=vocoder_run["served"][
-            "launches"]["k5_tensor_core"],
+            "launches"]["k5_tensor_core_total"],
         vocoder_training=vocoder_run)
     # the data-parallel phase's main path: the mesh engines' runs (K1 12 a
     # replica pass)
@@ -6348,5 +6807,10 @@ def main(mode: str | None = None) -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] in AB_SCRIPTS:
         sys.exit(ab_train(sys.argv[2], script=AB_SCRIPTS[sys.argv[1]]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--extraction-processes":
+        if not torch.cuda.is_available():
+            print("chip_smoke: CUDA is not available", file=sys.stderr)
+            sys.exit(1)
+        sys.exit(extraction_ops(int(sys.argv[2])))
     sys.exit(main(sys.argv[1] if sys.argv[1:] in (
         ["--loop-timing"], ["--vocoder-learning"]) else None))

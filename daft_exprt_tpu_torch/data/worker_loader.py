@@ -25,6 +25,8 @@ views; the host-to-device copy is the consumer's.
 
 from __future__ import annotations
 
+import gc
+
 import torch
 from torch.utils.data import DataLoader, Dataset
 
@@ -83,6 +85,12 @@ class WorkerTrainLoader(TrainLoader):
 
     def _load(self, keys: _Keys):
         workers = self.worker_count > 0
+        if workers:
+            # the parent's unreachable cycles are collected before the
+            # fork: a child's collector would otherwise finalize the CUDA
+            # objects among them (a step's CUDA graphs, pinned buffers),
+            # and a CUDA call in a forked child aborts it
+            gc.collect()
         loader = DataLoader(
             _StepSource(self), batch_size=None, shuffle=False,
             sampler=keys, num_workers=self.worker_count,

@@ -37,9 +37,20 @@ another. The outputs of :meth:`GraphCache.run` are valid until then.
 The kernels' launch counters are the wrappers' alone: a wrapper counts a
 launch under capture in ``.captured`` (it runs at every replay, where no
 wrapper runs) and every other in ``.launches``. An entry notes the
-captured counts of its capture, and :attr:`GraphCache.replayed` adds them
-up at each replay: a number derived from the capture, not counted at a
-launch, which only a trace of the device can confirm.
+captured counts of its capture (the counters of ``counters``: K1's and
+K5's by default, K2-K4's for the training step), and
+:attr:`GraphCache.replayed` adds them up at each replay: a number derived
+from the capture, not counted at a launch, which only a trace of the
+device can confirm.
+
+A pass that draws random numbers names its generators (``generators``):
+each capture registers their states with the graph, so that a replay
+draws from the generator's current seed and offset and advances the
+offset by what the pass consumed, as an eager run of the pass would.
+
+The same caches serve the vocoder's passes (``vocoder/hifigan.py``
+:meth:`~daft_exprt_tpu_torch.vocoder.hifigan.HiFiGanGenerator.replayed`)
+and the training and eval steps (``training/step.py``).
 """
 
 from __future__ import annotations
@@ -120,14 +131,14 @@ def to_host(tree):
 class _Entry:
     __slots__ = ("inputs", "graph", "outputs", "recorded", "keep")
 
-    def __init__(self, leaves, device):
+    def __init__(self, leaves, device, n_counters):
         self.inputs = [
             None if x is None else torch.empty(
                 x.shape, dtype=torch.from_numpy(np.empty(0, x.dtype)).dtype
                 if isinstance(x, np.ndarray) else x.dtype, device=device)
             for x in leaves]
         self.graph = self.outputs = None
-        self.recorded = (0,) * len(CAPTURED)  # launches the capture recorded
+        self.recorded = (0,) * n_counters  # launches the capture recorded
         self.keep = ()
 
     def load(self, leaves):
@@ -139,12 +150,9 @@ class _Entry:
             if static is None:
                 continue
             if isinstance(x, np.ndarray):
-                x = torch.from_numpy(np.ascontiguousarray(x))
+                # np.require keeps a 0-d array 0-d (ascontiguousarray not)
+                x = torch.from_numpy(np.require(x, requirements="C"))
             static.copy_(x, non_blocking=True)
-
-
-def _captured():
-    return tuple(getattr(obj, name) for obj, name in CAPTURED)
 
 
 class GraphCache:
@@ -152,18 +160,27 @@ class GraphCache:
 
     :param device: the engine's device; entries capture CUDA graphs on a
         CUDA device and run eagerly on the CPU
+    :param counters: the (object, attribute) launch counters under
+        capture whose growth an entry records (:data:`CAPTURED`)
+    :param generators: the ``torch.Generator`` objects the passes draw
+        from, registered with every graph
     """
 
-    def __init__(self, device):
+    def __init__(self, device, counters=CAPTURED, generators=()):
         self.device = torch.device(device)
         self.cuda = self.device.type == "cuda"
+        self.counters = tuple(counters)
+        self.generators = tuple(generators)
         self.pool = torch.cuda.graph_pool_handle() if self.cuda else None
         self.entries: dict = {}
         self.captures = 0           # graphs captured since construction
         self.capture_seconds = 0.0  # host seconds spent capturing them
         self.replays = 0            # graph replays since construction
         # derived: the launches each replayed capture recorded, summed
-        self.replayed = (0,) * len(CAPTURED)
+        self.replayed = (0,) * len(self.counters)
+
+    def _captured(self):
+        return tuple(getattr(obj, name) for obj, name in self.counters)
 
     def __len__(self):
         return len(self.entries)
@@ -208,7 +225,7 @@ class GraphCache:
         sig = (spec, tuple(_leaf_signature(x) for x in leaves))
         entry = self.entries.get((key, sig))
         if entry is None:
-            entry = _Entry(leaves, self.device)
+            entry = _Entry(leaves, self.device, len(self.counters))
             entry.load(leaves)
             out = fn(*_unflatten(spec, entry.inputs))
             if self.cuda:
@@ -227,14 +244,21 @@ class GraphCache:
 
     def _capture(self, entry, fn, spec):
         graph = torch.cuda.CUDAGraph()
+        for gen in self.generators:
+            graph.register_generator_state(gen)
+        # a capture draws nothing: the generators leave it as they came
+        states = [gen.get_state() for gen in self.generators]
         t0 = time.perf_counter()
-        before = _captured()
+        before = self._captured()
         # thread_local: another thread's CUDA calls (a server's HTTP
         # threads, a loader's) do not invalidate this capture
         with torch.cuda.device(self.device), torch.cuda.graph(
                 graph, pool=self.pool, capture_error_mode="thread_local"):
             outputs = fn(*_unflatten(spec, entry.inputs))
-        entry.recorded = tuple(a - b for a, b in zip(_captured(), before))
+        for gen, state in zip(self.generators, states):
+            gen.set_state(state)
+        entry.recorded = tuple(a - b
+                               for a, b in zip(self._captured(), before))
         entry.graph, entry.outputs = graph, outputs
         self.captures += 1
         self.capture_seconds += time.perf_counter() - t0

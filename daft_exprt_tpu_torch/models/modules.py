@@ -379,6 +379,15 @@ class ConvFF(nn.Module):
 # ----------------------------------------------------------------------
 # FFT block
 # ----------------------------------------------------------------------
+def drop_kernel_weights(module: nn.Module):
+    """Forget the K1 weights every FFT block under ``module`` packed, so
+    that the next pass packs them anew from the parameters: inside a
+    captured pass, the graph then repacks them at every replay."""
+    for m in module.modules():
+        if isinstance(m, FFTBlock):
+            m._packed = None
+
+
 class FFTBlock(nn.Module):
     """MHA -> mask -> ConvFF(FiLM) -> mask (``fft_block_apply``).
 

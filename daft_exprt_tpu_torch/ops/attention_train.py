@@ -36,7 +36,11 @@ float32, and bfloat16 with the rounding off, the CUDA-core one. The
 tensor-core forward also leaves ``o' = sum_j pd_ij v_j`` with the
 unrounded dropped probabilities (the plain forward at float32 dots), from
 which its backward takes the JAX kernels' ``delta = sum_j dp_ij p_ij`` as
-``rnd(g_i) . o'_i`` without a pass over the keys.
+``rnd(g_i) . o'_i`` without a pass over the keys. A launch under
+CUDA-graph capture (the training step's graph, ``training/step.py``) is
+counted in ``attention_core.fwd_captured``/``.bwd_captured`` (and
+``tc_...``) instead: it runs at every replay, where no wrapper runs; its
+tensor maps, encoded at capture, hold the graph's own addresses.
 """
 
 from __future__ import annotations
@@ -300,19 +304,34 @@ def _scalars(T, E, num_heads, rate):
             1.0 / (1.0 - rate) if rate > 0.0 else 1.0)
 
 
-def _launch(fn, device, *args):
+def _launch(fn, device, *args) -> bool:
     """``fn(*args, stream)`` on ``device``'s current stream, switching the
-    current device only where it differs; raises on a CUDA error."""
+    current device only where it differs; raises on a CUDA error.
+    :return: whether the stream was capturing a CUDA graph."""
     index = device.index
     if index == torch.cuda.current_device():
+        capturing = torch.cuda.is_current_stream_capturing()
         err = fn(*args, torch.cuda.current_stream(index).cuda_stream)
     else:
         with torch.cuda.device(index):
+            capturing = torch.cuda.is_current_stream_capturing()
             err = fn(*args, torch.cuda.current_stream(index).cuda_stream)
     if err != 0:
         raise RuntimeError(f"attention_core: CUDA error {err} at launch"
                            if err > 0 else "attention_core: "
                            "cuTensorMapEncodeTiled refused a tensor map")
+    return capturing
+
+
+def _count(direction: str, tensor_core: bool, capturing: bool):
+    """One launch of ``direction`` ("fwd" or "bwd"): in ``.{direction}_
+    launches`` (and ``.tc_...`` on the tensor-core instance), or under
+    CUDA-graph capture in ``.{direction}_captured`` (``.tc_...``): a
+    captured launch runs at every replay, where no wrapper runs."""
+    kind = "captured" if capturing else "launches"
+    for name in (f"{direction}_{kind}",) + (
+            (f"tc_{direction}_{kind}",) if tensor_core else ()):
+        setattr(attention_core, name, getattr(attention_core, name) + 1)
 
 
 def attention_forward_cuda(q, k, v, lengths, seeds, num_heads, rate,
@@ -329,21 +348,20 @@ def attention_forward_cuda(q, k, v, lengths, seeds, num_heads, rate,
     if tensor_core:
         out, oprime = torch.empty((2, B, T, E), dtype=torch.float32,
                                   device=q.device)
-        _launch(_kernels()[2], q.device, q.data_ptr(), k.data_ptr(),
+        capturing = _launch(_kernels()[2], q.device, q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), lengths.data_ptr(), seeds.data_ptr(),
                 out.data_ptr(), oprime.data_ptr(), stats.data_ptr(), B,
                 *scalars)
         saved = (stats, oprime)
     else:
         out = torch.empty((B, T, E), dtype=torch.float32, device=q.device)
-        _launch(_kernels()[0], q.device, q.data_ptr(), k.data_ptr(),
+        capturing = _launch(_kernels()[0], q.device, q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), lengths.data_ptr(), seeds.data_ptr(),
                 out.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(), B,
                 *scalars, int(dot_dtype == torch.bfloat16),
                 int(q.dtype == torch.bfloat16))
         saved = (stats,)
-    attention_core.fwd_launches += 1
-    attention_core.tc_fwd_launches += int(tensor_core)
+    _count("fwd", tensor_core, capturing)
     return out, saved
 
 
@@ -373,7 +391,7 @@ def attention_backward_cuda(q, k, v, g, lengths, seeds, saved, num_heads,
                                      device=q.device)
         terms = torch.empty((B, num_heads, T, 4), dtype=torch.float32,
                             device=q.device)
-        _launch(_kernels()[3], q.device, q.data_ptr(), k.data_ptr(),
+        capturing = _launch(_kernels()[3], q.device, q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), g.data_ptr(), lengths.data_ptr(),
                 seeds.data_ptr(), stats.data_ptr(), saved[1].data_ptr(),
                 terms.data_ptr(), gr.data_ptr(), dq.data_ptr(), dk.data_ptr(),
@@ -382,14 +400,13 @@ def attention_backward_cuda(q, k, v, g, lengths, seeds, saved, num_heads,
         dq, dk, dv = (torch.empty_like(q) for _ in range(3))
         delta = torch.empty((B, num_heads, T), dtype=torch.float32,
                             device=q.device)
-        _launch(_kernels()[1], q.device, q.data_ptr(), k.data_ptr(),
+        capturing = _launch(_kernels()[1], q.device, q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), g.data_ptr(), lengths.data_ptr(),
                 seeds.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
                 delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                 B, *scalars, int(dot_dtype == torch.bfloat16),
                 int(q.dtype == torch.bfloat16))
-    attention_core.bwd_launches += 1
-    attention_core.tc_bwd_launches += int(tensor_core)
+    _count("bwd", tensor_core, capturing)
     return dq, dk, dv
 
 
@@ -445,3 +462,8 @@ attention_core.bwd_launches = 0
 # the launches of the above that took the tensor-core instance
 attention_core.tc_fwd_launches = 0
 attention_core.tc_bwd_launches = 0
+# launches recorded under CUDA-graph capture (run at every replay)
+attention_core.fwd_captured = 0
+attention_core.bwd_captured = 0
+attention_core.tc_fwd_captured = 0
+attention_core.tc_bwd_captured = 0

@@ -39,7 +39,10 @@ two instances, which :func:`plan_conv_ff_train` and
 the tensor-core one, ``csrc/conv_ff_blocked_tc.cu`` for both (also
 counted in ``tc_fwd_launches`` and ``tc_bwd_launches`` on the same
 functions), float32 dots the CUDA-core ones, ``csrc/conv_ff_train.cu``
-(K3) and ``csrc/conv_ff_blocked.cu`` (K4).
+(K3) and ``csrc/conv_ff_blocked.cu`` (K4). A launch under CUDA-graph
+capture (the training step's graph, ``training/step.py``) is counted in
+``fwd_captured``/``bwd_captured`` (and ``tc_...``) instead: it runs at
+every replay of the graph, where no wrapper runs.
 """
 
 from __future__ import annotations
@@ -130,6 +133,14 @@ def tc_weights(w1, w2) -> TCWeights:
                      cast(w2.flip(2).permute(2, 0, 1)))
     _TC_WEIGHTS[w1] = (key, weakref.ref(w2), made)
     return made
+
+
+def drop_tc_weights():
+    """Forget every kept :class:`TCWeights`: the next call casts anew. A
+    pass captured into a CUDA graph starts with this, so that the graph
+    casts the weights at every replay instead of reading a set an eager
+    run made (which a later cast would free)."""
+    _TC_WEIGHTS.clear()
 
 
 # ----------------------------------------------------------------------
@@ -491,16 +502,18 @@ def _tensor_core(x, C, c_block, dot_dtype):
     return plan.instance == "tensor_core"
 
 
-def _launched(err, c_block, tensor_core, direction):
-    """Raise on a launch error; count the launch."""
+def _launched(err, c_block, tensor_core, direction, capturing):
+    """Raise on a launch error; count the launch: in ``.{direction}_
+    launches`` (and ``.tc_...`` on the tensor-core instance), or under
+    CUDA-graph capture in ``.{direction}_captured`` (``.tc_...``): a
+    captured launch runs at every replay, where no wrapper runs."""
     if err != 0:
         raise RuntimeError(f"conv_ff_train: CUDA error {err} at launch")
     fn = conv_ff_train if c_block is None else conv_ff_train_blocked
-    setattr(fn, f"{direction}_launches",
-            getattr(fn, f"{direction}_launches") + 1)
-    if tensor_core:
-        setattr(fn, f"tc_{direction}_launches",
-                getattr(fn, f"tc_{direction}_launches") + 1)
+    kind = "captured" if capturing else "launches"
+    for name in (f"{direction}_{kind}",) + (
+            (f"tc_{direction}_{kind}",) if tensor_core else ()):
+        setattr(fn, name, getattr(fn, name) + 1)
 
 
 @functools.lru_cache(maxsize=64)
@@ -531,6 +544,7 @@ def conv_ff_forward_cuda(x, w1k, b1, w2k, b2, ln_s, ln_b, film, seeds,
                                        seeds, dot_dtype, c_block=c_block)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
+        capturing = torch.cuda.is_current_stream_capturing()
         stream = torch.cuda.current_stream().cuda_stream
         if tensor_core:
             xb, ws = _tc_scratch(x, C, False)
@@ -547,7 +561,7 @@ def conv_ff_forward_cuda(x, w1k, b1, w2k, b2, ln_s, ln_b, film, seeds,
                 film.data_ptr(), seeds.data_ptr(), out.data_ptr(),
                 *_shape_args(x, C, c_block), *_dropout_args(rate),
                 int(dot_dtype == torch.bfloat16), stream)
-    _launched(err, c_block, tensor_core, "fwd")
+    _launched(err, c_block, tensor_core, "fwd", capturing)
     return out
 
 
@@ -576,6 +590,7 @@ def conv_ff_backward_cuda(x, w1k, b1, w2k, b2, ln_s, ln_b, film, seeds, g,
     grads = (dx.data_ptr(), dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(),
              dvec.data_ptr(), dfilm.data_ptr())
     with torch.cuda.device(x.device):
+        capturing = torch.cuda.is_current_stream_capturing()
         stream = torch.cuda.current_stream().cuda_stream
         if tensor_core:
             xb, ws = _tc_scratch(x, C, True)
@@ -597,7 +612,7 @@ def conv_ff_backward_cuda(x, w1k, b1, w2k, b2, ln_s, ln_b, film, seeds, g,
                 film.data_ptr(), seeds.data_ptr(), g.data_ptr(),
                 w1r.data_ptr(), w2r.data_ptr(), ws.data_ptr(), *grads, *shape,
                 *_dropout_args(rate), int(dot_dtype == torch.bfloat16), stream)
-    _launched(err, c_block, tensor_core, "bwd")
+    _launched(err, c_block, tensor_core, "bwd", capturing)
     return dx, dw1, db1, dw2, dvec[2], dvec[0], dvec[1], dfilm
 
 
@@ -686,3 +701,12 @@ conv_ff_train.tc_fwd_launches = 0
 conv_ff_train.tc_bwd_launches = 0
 conv_ff_train_blocked.tc_fwd_launches = 0
 conv_ff_train_blocked.tc_bwd_launches = 0
+# launches recorded under CUDA-graph capture (run at every replay)
+conv_ff_train.fwd_captured = 0
+conv_ff_train.bwd_captured = 0
+conv_ff_train.tc_fwd_captured = 0
+conv_ff_train.tc_bwd_captured = 0
+conv_ff_train_blocked.fwd_captured = 0
+conv_ff_train_blocked.bwd_captured = 0
+conv_ff_train_blocked.tc_fwd_captured = 0
+conv_ff_train_blocked.tc_bwd_captured = 0

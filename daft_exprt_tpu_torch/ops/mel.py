@@ -9,6 +9,11 @@ and padding follow :func:`num_frames`), then go through
 ``torch.fft.rfft``; ``torch.stft``'s defaults are not used. The filter bank
 is a numpy array built once per configuration and copied to each device
 once.
+
+On the CPU the vector math (square root, log, exp) runs once on one
+element before the first spectrogram of a process
+(:func:`cpu_vector_math_ready`), so that every process computes the same
+mel from the same wav.
 """
 
 from __future__ import annotations
@@ -131,10 +136,25 @@ def hann_window_on(device: torch.device, n_fft: int) -> torch.Tensor:
     return torch.from_numpy(hann_window(n_fft)).to(device)
 
 
+@functools.lru_cache(maxsize=None)
+def cpu_vector_math_ready() -> bool:
+    """Run the CPU's vector-math square root, log and exp once, on one
+    element (so on one thread), once a process. Their first call over
+    many elements, spread over the intra-op threads, has given one
+    thread's share approximate square roots (relative error up to
+    3.2e-4, in 3 of 24 fresh processes on an 8-core host:
+    ``chip_smoke.py --extraction-processes``), which moved the
+    extraction's frame energy against the card's by up to 7.5e-5."""
+    torch.exp(torch.log(torch.sqrt(torch.ones(1))))
+    return True
+
+
 def stft_magnitude(wav: torch.Tensor, n_fft: int, hop_length: int,
                    center: bool = True) -> torch.Tensor:
     """Magnitude spectrogram (..., 1 + n_fft//2, F) with a periodic Hann
     window: ``sqrt(re^2 + im^2 + 1e-9)``."""
+    if wav.device.type == "cpu":
+        cpu_vector_math_ready()
     window = hann_window_on(wav.device, n_fft)
     frames = frame_signal(wav, n_fft, hop_length, center) * window
     spec = torch.fft.rfft(frames, n=n_fft, dim=-1)

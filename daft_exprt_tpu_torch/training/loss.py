@@ -14,9 +14,15 @@ from __future__ import annotations
 import torch
 
 
-def adversarial_weight(iteration, warmup_steps: int, adv_max_weight: float):
-    """Adversarial speaker-loss weight ramp (float32)."""
-    it = torch.as_tensor(iteration, dtype=torch.float32)
+def adversarial_weight(iteration, warmup_steps: int, adv_max_weight: float,
+                       device=None):
+    """Adversarial speaker-loss weight ramp (float32), on ``iteration``'s
+    device for a tensor (the training step's graph loads it), else made on
+    ``device`` by a fill (no copy from the host, which a CUDA graph cannot
+    hold)."""
+    it = iteration.float() if isinstance(iteration, torch.Tensor) \
+        else torch.full((), float(iteration), dtype=torch.float32,
+                        device=device)
     weight_iter = (it * warmup_steps ** -1.5
                    * adv_max_weight / warmup_steps ** -0.5)
     return torch.clamp_max(weight_iter, adv_max_weight)
@@ -48,7 +54,8 @@ def compute_loss(outputs, targets, iteration, hp, row_weights=None):
         film_params, encoder_preds, decoder_preds, alignments)
     :param targets: (duration_targets, energy_targets, pitch_targets,
         mel_spec_targets, speaker_ids)
-    :param iteration: current optimizer step
+    :param iteration: current optimizer step: a number, or a float32
+        scalar tensor on the outputs' device
     :param row_weights: optional (B,) 0/1 weights: batch means become
         weighted means over valid rows
     """
@@ -81,7 +88,7 @@ def compute_loss(outputs, targets, iteration, hp, row_weights=None):
     mel_l2 = _row_mean(mel_diff.square().sum((1, 2)) * inv_out, row_weights)
 
     speaker_weight = adversarial_weight(iteration, hp.warmup_steps,
-                                        hp.adv_max_weight).to(device)
+                                        hp.adv_max_weight, device)
     individual = {
         "speaker_loss": speaker_weight * speaker_loss,
         "post_mult_loss": hp.post_mult_weight * post_mult_loss,

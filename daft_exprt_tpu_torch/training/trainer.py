@@ -13,6 +13,12 @@ all reach the same best-model decision.
 
 Each iteration's dropout stream is seeded from (``hp.seed``, rank,
 iteration), so a resumed run draws the masks the uninterrupted one drew.
+
+On the card every step and every validation batch is one CUDA graph
+replay (``training/step.py``): the loop hands each step a host batch and
+the iteration, and reads the step's metrics (device scalars) once a log
+interval; a resume copies into the parameters and moments and sets the
+optimizer's host count, which the step loads before each replay.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ import torch
 from daft_exprt_tpu_torch.data.loader import (EvalLoader, FeatureDataset,
                                               TrainLoader)
 from daft_exprt_tpu_torch.device import default_device
+from daft_exprt_tpu_torch.inference.graphs import to_host
 from daft_exprt_tpu_torch.models.daft_exprt import DaftExprt
 from daft_exprt_tpu_torch.models.modules import init_parameters
 from daft_exprt_tpu_torch.parallel.distributed import (any_rank,
@@ -165,7 +172,10 @@ class Trainer:
         for batch in val_loader:
             batch = {k: v for k, v in batch.items() if k not in _ID_KEYS}
             row_mask = np.ones((batch["symbols"].shape[0],), np.float32)
-            metrics = _floats(self.eval_step(batch, row_mask), self.device)
+            metrics = self.eval_step(batch, row_mask)
+            # one copy to the host a batch
+            metrics = dict(zip(metrics, map(float, to_host(
+                list(metrics.values())))))
             b = metrics.pop("count")
             for k, v in metrics.items():
                 totals[k] = totals.get(k, 0.0) + v * b

@@ -23,6 +23,18 @@ staged convs alone, differentiable, the generator of GAN training
 (``vocoder/train.py``). Under weight norm (``train.wn_wrap``) a conv holds
 ``weight_v`` and ``weight_g`` instead of ``weight`` and materializes its
 weight from them on every call.
+
+:meth:`HiFiGanGenerator.replayed` runs :meth:`~HiFiGanGenerator.forward`
+through the generator's own :class:`~daft_exprt_tpu_torch.inference.
+graphs.GraphCache` (one CUDA graph per label, dtype and input shape,
+captured at the first call of a shape): the counterpart of the JAX
+package's ``_prepared_vocoder`` and its ``_vocode_cache``. :func:`vocode_mels`
+(per rows and padded length) and the streamer's window
+(``vocoder/streaming.py``) go through it. Its graphs are dropped whenever
+a parameter moves or changes in place (the key ``mrf_programs`` repacks
+K5's programs on), so a replay never reads new staged-conv weights beside
+stale K5 programs: the graphs of one weight version live at a time, within
+the JAX cache's bound of two.
 """
 
 from __future__ import annotations
@@ -37,6 +49,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from daft_exprt_tpu_torch.device import default_device
+from daft_exprt_tpu_torch.inference.graphs import GraphCache, to_host
 from daft_exprt_tpu_torch.ops.mrf_vocoder import (LRELU_SLOPE,
                                                   build_mrf_program,
                                                   fused_mrf)
@@ -187,6 +200,7 @@ class HiFiGanGenerator(nn.Module):
                                                self.two_convs))
         self.conv_post = _conv(ch0 // 2 ** self.num_upsamples, 1, 7)
         self._programs = None  # (key, {stage: MrfProgram}) for K5
+        self._graphs = None  # (weights key, GraphCache) of replayed()
         self.reset_parameters(torch.Generator().manual_seed(seed))
         self.to(default_device(device))
         self.eval()
@@ -227,6 +241,33 @@ class HiFiGanGenerator(nn.Module):
         """What a captured pass reads besides the parameters: K5's
         programs as last built (None before the first pass)."""
         return self._programs and self._programs[1]
+
+    def graphs(self) -> GraphCache:
+        """The cache of :meth:`replayed`, emptied (a new one, with its own
+        pool) whenever any parameter moved or changed in place since its
+        graphs were captured."""
+        key = (self.device,) + tuple((p.data_ptr(), p._version)
+                                     for p in self.parameters())
+        if self._graphs is None or self._graphs[0] != key:
+            self._graphs = (key, GraphCache(self.device))
+        return self._graphs[1]
+
+    @torch.no_grad()
+    def replayed(self, mel, dtype=torch.float32, label: str = "vocode"):
+        """:meth:`forward` through the graph of (``label``, ``dtype``,
+        ``mel``'s shape): eager at a shape's first call (then captured on
+        the card), a replay after it.
+
+        :param mel: (B, num_mels, T) numpy array or tensor, copied into the
+            graph's static input
+        :return: the waveform, valid until the next call of this
+            generator's graphs (a replay overwrites it): copy it out first
+        """
+        cache = self.graphs()
+        programs = self.mrf_programs()
+        return cache.run((label, dtype),
+                         lambda m: self._run(m, dtype, programs), (mel,),
+                         keep=self.graph_state)
 
     def _run(self, mel, dtype, programs):
         x = conv(mel.float(), self.conv_pre, dtype=dtype)
@@ -270,7 +311,9 @@ def vocode_mels(gen: HiFiGanGenerator, mels, *, bucket: int = 128,
 
     Rows are grouped by length padded up to a multiple of ``bucket``
     (padding with the mel floor ``log(1e-5)``) and run ``max_batch`` at a
-    time, with the staged convs' operands in ``dtype``.
+    time, with the staged convs' operands in ``dtype``: one
+    :meth:`~HiFiGanGenerator.replayed` pass per (rows, padded length),
+    copied to the host with one wait.
     """
     up = int(np.prod(gen.cfg["upsample_rates"]))
     n_mels = gen.cfg["num_mels"]
@@ -286,9 +329,9 @@ def vocode_mels(gen: HiFiGanGenerator, mels, *, bucket: int = 128,
                             np.float32)
             for row, i in enumerate(chunk):
                 batch[row, :, :mels[i].shape[1]] = mels[i]
-            out = gen(torch.from_numpy(batch).to(gen.device), dtype).cpu()
+            out = to_host(gen.replayed(batch, dtype))
             for row, i in enumerate(chunk):
-                wavs[i] = out[row, :mels[i].shape[1] * up].numpy()
+                wavs[i] = out[row, :mels[i].shape[1] * up]
     return wavs
 
 

@@ -11,9 +11,22 @@ concatenated chunks equal the full run on the floor-padded mel, cropped
 to ``T * prod(upsample_rates)`` samples (up to the convs' summation order
 at the window's shape).
 
-On the card the windows are double-buffered: window i's chunk is queued
-for the host copy, window i+1 is dispatched, and only then does the host
-wait for chunk i.
+Every window is one pass of the generator's graph of that shape
+(:meth:`~daft_exprt_tpu_torch.vocoder.hifigan.HiFiGanGenerator.replayed`,
+label ``"window"``): the port's counterpart of JAX's single compiled
+window shape. The first window of a generator runs eagerly and captures
+the graph (``SynthesisService.warmup`` streams one job, so a server's
+requests only replay it); every later window replays it.
+
+A replay overwrites the graph's static output, so each window's crop is
+copied out before the next window runs: the copy into one of the
+stream's two pinned host buffers is queued on the same CUDA stream right
+after the replay, then window i+1 is dispatched, and only then does the
+host wait for chunk i (double buffering), which it copies out of its
+buffer before the buffer takes window i+2. The graph lives in the
+generator's own memory pool, not the engine's: a server releases its
+lock between windows, and the engine's replays that run there never
+write the window's output.
 """
 
 from __future__ import annotations
@@ -85,23 +98,31 @@ class StreamingVocoder:
             plan.append((ws, c0 - ws, min(c0 + self.chunk, n_frames) - c0))
         return plan
 
-    def _dispatch(self, window, crop: slice):
-        """Run one (num_mels, window) mel; queue the crop's host copy.
+    def _dispatch(self, window, crop: slice, host, done):
+        """Run one (num_mels, window) mel through the window's graph; queue
+        the crop's copy into ``host`` (a buffer of ``window * up``
+        samples), recorded by the CUDA event ``done`` (None on the CPU).
         :return: a callable giving the chunk as numpy, waiting for it."""
-        mel = torch.from_numpy(window[None]).to(self.gen.device)
-        out = self.gen(mel)[0, crop]
-        if out.device.type != "cuda":
-            chunk = out.numpy()
-            return lambda: chunk
-        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-        host.copy_(out, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
+        out = self.gen.replayed(window[None], label="window")[0, crop]
+        dst = host[:out.shape[0]]
+        dst.copy_(out, non_blocking=done is not None)
+        if done is not None:
+            done.record(torch.cuda.current_stream(out.device))
 
         def fetch():
-            done.synchronize()
-            return host.numpy()
+            if done is not None:
+                done.synchronize()
+            return dst.numpy().copy()  # the buffer takes window i + 2
         return fetch
+
+    def _buffers(self):
+        """Two host buffers of one window's samples (pinned on the card)
+        and their CUDA events: one pair per stream, so that streams
+        interleaved by a server never share one."""
+        cuda = self.gen.device.type == "cuda"
+        return [(torch.empty(self.window * self.up, dtype=torch.float32,
+                             pin_memory=cuda),
+                 torch.cuda.Event() if cuda else None) for _ in range(2)]
 
     def stream(self, mel, n_frames: int | None = None):
         """Yield float32 waveform chunks for ``mel`` (num_mels, T).
@@ -118,15 +139,18 @@ class StreamingVocoder:
         # the padded buckets of the batch paths hold
         ext = np.full((mel.shape[0], T + self.window), MEL_FLOOR, np.float32)
         ext[:, :T] = mel[:, :T]
+        buffers = self._buffers()
         if T + self.halo <= self.window:
             # one window; its floor region covers the tail's receptive
             # field [T, T + halo), so the whole chunk is exact
-            yield self._dispatch(ext[:, :self.window], slice(0, T * up))()
+            yield self._dispatch(ext[:, :self.window], slice(0, T * up),
+                                 *buffers[0])()
             return
         pending = None
-        for ws, rel, n in self.windows(T):
+        for i, (ws, rel, n) in enumerate(self.windows(T)):
             fetch = self._dispatch(ext[:, ws:ws + self.window],
-                                   slice(rel * up, (rel + n) * up))
+                                   slice(rel * up, (rel + n) * up),
+                                   *buffers[i % 2])
             if pending is not None:
                 yield pending()
             pending = fetch

@@ -403,3 +403,59 @@ def test_to_host_copies_and_keeps_the_nesting():
     np.testing.assert_array_equal(out[0], np.arange(6).reshape(2, 3))
     with pytest.raises(TypeError, match="numpy arrays, tensors and None"):
         graphs.GraphCache("cpu").run("k", lambda v: v, (3,))
+
+
+def test_a_capture_registers_the_generators_and_draws_nothing(monkeypatch):
+    """A cache's generators are registered with every graph it captures,
+    and a capture leaves their state as it found it: the first call's
+    eager run draws, the capture that follows does not move the
+    generator (a replay would draw from the state the caller loads)."""
+    registered = []
+
+    class Graph:
+        def register_generator_state(self, gen):
+            registered.append(gen)
+
+        def replay(self):
+            pass
+
+    class Capture:
+        def __init__(self, graph, pool=None, capture_error_mode=None):
+            pass
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+    class Device:
+        def __init__(self, device):
+            pass
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", Graph)
+    monkeypatch.setattr(torch.cuda, "graph", Capture)
+    monkeypatch.setattr(torch.cuda, "device", Device)
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: (0, 0))
+    gen = torch.Generator().manual_seed(5)
+    cache = graphs.GraphCache("cpu", counters=(), generators=(gen,))
+    cache.cuda = True  # the capture path, on the CPU
+    assert cache.replayed == ()
+
+    def fn(x):
+        return x + torch.rand(x.shape, generator=gen)
+
+    out = cache.run("k", fn, (np.zeros(3, np.float32),))
+    want = torch.rand(3, generator=torch.Generator().manual_seed(5))
+    assert torch.equal(out, want)
+    assert registered == [gen]
+    twin = torch.Generator().manual_seed(5)
+    torch.rand(3, generator=twin)
+    assert torch.equal(gen.get_state(), twin.get_state())
+    assert next(iter(cache.entries.values())).recorded == ()

@@ -352,3 +352,221 @@ def test_wide_eval_step_matches_jax(wide_setup):
     # the no-grad forward takes K1 (its plain version here) at E=256, 2
     # heads of 128
     _check_eval_step(wide_setup, max_symbols=16, max_frames=64)
+
+
+# ----------------------------------------------------------------------
+# The steps through their graph caches (eager entries on the CPU)
+# ----------------------------------------------------------------------
+def _dropout_hparams():
+    """The tiny configuration with its dropout on, accumulation 2."""
+    jhp = tiny_hparams(accumulation_steps=ACCUM, weight_decay=1e-6)
+    return HyperParams(verbose=False, **jhp.as_dict())
+
+
+def _eager_step(model, optimizer, hp, batch, generator, iteration):
+    """The train step written out eagerly, on the host count: the
+    micro-batch loop, then ``Optimizer.step``."""
+    params = [p for _, p in model.named_parameters()]
+    for p in params:
+        p.grad = None
+    for i in range(hp.accumulation_steps):
+        micro = _micro(batch, i)
+        loss, _ = compute_loss(model(batch_to_inputs(micro), train=True,
+                                     generator=generator),
+                               batch_to_targets(micro), iteration, hp)
+        (loss / hp.accumulation_steps).backward()
+    optimizer.step([p.grad for p in params])
+
+
+def test_steps_through_the_cache_equal_eager_steps():
+    """Three steps with dropout on through ``make_train_step`` (one
+    entry: one batch signature) equal the same steps written out eagerly
+    from the same generator, parameter for parameter; the generator moves
+    on as far as the eager steps move it."""
+    hp = _dropout_hparams()
+    batches = [_stacked_batch(hp, seed=10 * i) for i in range(3)]
+    model = DaftExprt(hp, device="cpu", seed=3)
+    twin = copy.deepcopy(model)
+    step = make_train_step(model, hp)
+    opt = Optimizer([p for _, p in twin.named_parameters()], hp)
+    gen, twin_gen = torch.Generator(), torch.Generator()
+    for i, batch in enumerate(batches):
+        gen.manual_seed(100 + i)
+        twin_gen.manual_seed(100 + i)
+        metrics = step(batch, gen, 7 + i)
+        _eager_step(twin, opt, hp, batch, twin_gen, 7 + i)
+        assert torch.equal(gen.get_state(), twin_gen.get_state())
+        assert np.isfinite(float(metrics["loss"]))
+    assert step.graphs.keys() == {("step", False)}
+    assert len(step.graphs) == 1 and step.optimizer.count == opt.count == 3
+    for (name, a), b in zip(model.named_parameters(), twin.parameters()):
+        assert torch.equal(a, b), name
+        assert torch.equal(a.grad, b.grad), name
+    for a, b in zip(step.optimizer.mu + step.optimizer.nu, opt.mu + opt.nu):
+        assert torch.equal(a, b)
+
+
+def test_a_step_reads_no_value_on_the_host(setup, monkeypatch):
+    """Nothing inside the train or eval step reads a tensor's value on the
+    host (a CUDA graph could not hold it): ``Tensor.item`` and
+    ``Tensor.tolist`` raise there."""
+    s = setup
+    model = copy.deepcopy(s["tmodel"])
+    step = make_train_step(model, s["thp"])
+
+    def read(self):
+        raise AssertionError("a host read inside the step")
+
+    with monkeypatch.context() as mp:
+        mp.setattr(torch.Tensor, "item", read)
+        mp.setattr(torch.Tensor, "tolist", read)
+        metrics = step(s["batch"], torch.Generator().manual_seed(0),
+                       ITERATION)
+        vector = make_eval_step(model, s["thp"])(
+            synthetic_batch(s["jhp"], batch_size=4, seed=7),
+            np.ones(4, np.float32))
+    assert np.isfinite(float(metrics["loss"]))
+    assert np.isfinite(float(vector["loss"]))
+
+
+@pytest.mark.parametrize("count", [0, 1, 499, 9999, 10000, 370000])
+def test_device_scalars_equal_the_host_ones(count):
+    """The 1-based count's bias corrections and step size, computed from a
+    float32 scalar tensor (what a graph loads), equal the host formulas;
+    and the adversarial weight of a tensor iteration equals the host
+    one's."""
+    from daft_exprt_tpu_torch.training.loss import adversarial_weight
+    _, thp = _hparams()
+    opt = Optimizer([torch.zeros(3)], thp)
+    c = count + 1
+    bc1, bc2, step_size = opt.scalars(torch.full((), float(c)))
+    one = torch.ones((), dtype=torch.float32)
+    assert bc1.item() == (1 - (one * opt.b1) ** c).item()
+    assert bc2.item() == (1 - (one * opt.b2) ** c).item()
+    assert step_size.item() == (-opt.schedule(c)).item()
+    it = torch.full((), float(count))
+    for args in ((thp.warmup_steps, thp.adv_max_weight), (10, 0.5)):
+        assert adversarial_weight(it, *args).item() \
+            == adversarial_weight(count, *args).item()
+
+
+def test_a_resume_that_sets_the_count_alone_moves_the_step(setup):
+    """The step loads the optimizer's host count before every pass: a
+    count set alone (a resume without optimizer state) gives the update
+    ``Optimizer.step`` gives at that count, and the logged learning rate
+    is the schedule at the iteration."""
+    s = setup
+    model, twin = copy.deepcopy(s["tmodel"]), copy.deepcopy(s["tmodel"])
+    step = make_train_step(model, s["thp"])
+    opt = Optimizer([p for _, p in twin.named_parameters()], s["thp"])
+    step.optimizer.count = opt.count = 123
+    metrics = step(s["batch"], torch.Generator().manual_seed(0), ITERATION)
+    _eager_step(twin, opt, s["thp"], s["batch"], None, ITERATION)
+    assert step.optimizer.count == opt.count == 124
+    for a, b in zip(model.parameters(), twin.parameters()):
+        assert torch.equal(a, b)
+    assert float(metrics["learning_rate"]) \
+        == float(make_lr_schedule(s["thp"])(ITERATION))
+
+
+def test_a_replaced_parameter_drops_the_step_graphs(setup):
+    """A graph reads the parameters at their addresses: the step empties
+    its cache when one is replaced rather than copied into."""
+    s = setup
+    model = copy.deepcopy(s["tmodel"])
+    step = make_train_step(model, s["thp"])
+    gen = torch.Generator().manual_seed(0)
+    step(s["batch"], gen, ITERATION)
+    step(s["batch"], gen, ITERATION + 1)
+    entry = next(iter(step.graphs.entries.values()))
+    step(s["batch"], gen, ITERATION + 2)
+    assert next(iter(step.graphs.entries.values())) is entry
+    w = model.frame_decoder.projection.linear_layer.weight
+    w.data = w.data.clone()
+    step(s["batch"], gen, ITERATION + 3)
+    assert len(step.graphs) == 1
+    assert next(iter(step.graphs.entries.values())) is not entry
+
+
+def test_eval_step_through_the_cache_equals_eager(setup):
+    """The eval step's entry (one batch signature) gives the model and
+    loss called eagerly, packs K1's weights inside its pass and keeps
+    none past it, so weights changed in place are seen at the next
+    batch."""
+    from daft_exprt_tpu_torch.models.modules import FFTBlock
+    s = setup
+    model = copy.deepcopy(s["tmodel"])
+    step = make_eval_step(model, s["thp"])
+    mask = np.array([1, 0, 1, 1], np.float32)
+    for round_ in range(2):
+        for seed in (7, 8):
+            batch = synthetic_batch(s["jhp"], batch_size=4, seed=seed)
+            got = step(batch, mask)
+            assert all(m._packed is None for m in model.modules()
+                       if isinstance(m, FFTBlock))
+            with torch.no_grad():
+                inputs = {k: torch.from_numpy(np.asarray(batch[k]))
+                          for k in INPUT_KEYS}
+                outputs = model(batch_to_inputs(inputs), train=False)
+                loss, terms = compute_loss(outputs, batch_to_targets(inputs),
+                                           0, s["thp"],
+                                           row_weights=torch.from_numpy(mask))
+            assert torch.equal(got["loss"], loss)
+            for k, v in terms.items():
+                assert torch.equal(got[k], v), k
+            assert float(got["count"]) == 3
+        with torch.no_grad():  # in place, as an optimizer step
+            for p in model.parameters():
+                p.mul_(0.9)
+    assert step.graphs.keys() == {"eval"} and len(step.graphs) == 1
+
+
+def test_training_kernels_count_captured_launches_apart():
+    """K2-K4's wrappers count a launch recorded under CUDA-graph capture
+    in ``*_captured`` (it runs at every replay, where no wrapper runs)
+    and every other in ``*_launches``; ``TRAIN_CAPTURED`` names the
+    captured counters a train-step graph records."""
+    from daft_exprt_tpu_torch.ops import attention_train, conv_ff_train
+    from daft_exprt_tpu_torch.training.step import TRAIN_CAPTURED
+    fns = (attention_train.attention_core, conv_ff_train.conv_ff_train,
+           conv_ff_train.conv_ff_train_blocked)
+    names = [f"{tc}{d}_{kind}" for d in ("fwd", "bwd") for tc in ("", "tc_")
+             for kind in ("launches", "captured")]
+
+    def counts():
+        return [getattr(fn, n) for fn in fns for n in names]
+
+    before = counts()
+    attention_train._count("fwd", True, True)
+    attention_train._count("bwd", False, False)
+    conv_ff_train._launched(0, None, True, "bwd", True)
+    conv_ff_train._launched(0, 128, False, "fwd", False)
+    moved = {(fn.__name__, n) for fn in fns for n in names
+             if getattr(fn, n) != before[fns.index(fn) * len(names)
+                                         + names.index(n)]}
+    assert moved == {("attention_core", "fwd_captured"),
+                     ("attention_core", "tc_fwd_captured"),
+                     ("attention_core", "bwd_launches"),
+                     ("conv_ff_train", "bwd_captured"),
+                     ("conv_ff_train", "tc_bwd_captured"),
+                     ("conv_ff_train_blocked", "fwd_launches")}
+    assert {(fn.__name__, n) for fn, n in TRAIN_CAPTURED} == {
+        (fn.__name__, n) for fn in fns for n in names if "captured" in n}
+    with pytest.raises(RuntimeError, match="CUDA error 7"):
+        conv_ff_train._launched(7, None, False, "fwd", False)
+
+
+def test_a_step_casts_the_tensor_core_weights_inside_its_pass(setup):
+    """K3/K4's bf16 weights kept from before a step are forgotten as the
+    step's pass starts: a captured pass casts them itself at every
+    replay, and never reads a set an eager run made (a later cast frees
+    it)."""
+    from daft_exprt_tpu_torch.ops import conv_ff_train as cft
+    s = setup
+    model = copy.deepcopy(s["tmodel"])
+    step = make_train_step(model, s["thp"])
+    conv = model.frame_decoder.blocks[0].feed_forward.convs
+    cft.tc_weights(conv["0"].conv.weight, conv["2"].conv.weight)
+    assert len(cft._TC_WEIGHTS) == 1
+    step(s["batch"], torch.Generator().manual_seed(0), ITERATION)
+    assert len(cft._TC_WEIGHTS) == 0  # the CPU's plain path casts none

@@ -509,3 +509,50 @@ def test_training_cli_raises_without_cuda_and_joins_a_group(
                                          / "DaftExprt_last.pt"))[0]
     for k, v in runs["plain"].items():
         torch.testing.assert_close(runs["group"][k], v, rtol=0, atol=0)
+
+
+def test_validation_goes_through_the_eval_graphs_with_one_copy_a_batch(
+        corpus, tmp_path, monkeypatch):
+    """``Trainer.validate`` takes each batch through the eval step's
+    entry of its signature and copies its metrics to the host once; the
+    result is the row-weighted mean of the eval step called directly. The
+    train step's cache holds one entry a batch signature, and a resume
+    that sets the optimizer's count alone is loaded by the next step."""
+    from daft_exprt_tpu_torch.training.step import (EVAL_METRICS,
+                                                    make_eval_step)
+    hp = HyperParams(**tiny_kwargs(corpus, tmp_path))
+    t = trainer.Trainer(hp, device="cpu")
+    _, val_loader = t.make_loaders()
+    copies = []
+    to_host = trainer.to_host
+
+    def counted(tree):
+        copies.append(len(tree))
+        return to_host(tree)
+
+    monkeypatch.setattr(trainer, "to_host", counted)
+    got = t.validate(val_loader)
+    eager, rows = {}, 0.0
+    direct = make_eval_step(t.model, hp)
+    for batch in val_loader:
+        batch = {k: v for k, v in batch.items()
+                 if k not in ("feature_dirs", "feature_files")}
+        m = direct(batch, np.ones(batch["symbols"].shape[0], np.float32))
+        n = float(m.pop("count"))
+        for k, v in m.items():
+            eager[k] = eager.get(k, 0.0) + float(v) * n
+        rows += n
+    assert len(copies) == len(list(val_loader))
+    assert set(copies) == {len(EVAL_METRICS)}
+    assert set(got) == set(eager)
+    for k in got:
+        np.testing.assert_allclose(got[k], eager[k] / rows, rtol=1e-6,
+                                   err_msg=k)
+    sigs = {sig for _, sig in t.eval_step.graphs.entries}
+    assert t.eval_step.graphs.keys() == {"eval"} and 1 <= len(sigs) \
+        == len(t.eval_step.graphs)
+    t.optimizer.count = 40  # a resume without optimizer state
+    batch, _ = _batch(t)
+    t.train_step(batch, torch.Generator().manual_seed(0), 41)
+    assert t.optimizer.count == 41
+    assert t.train_step.graphs.keys() == {("step", False)}

@@ -408,3 +408,125 @@ def test_stream_ignores_junk_beyond_true_length(tiny_gen, rng_np):
     padded = np.concatenate([mel, 7.0 * _mel(rng_np, 13)], axis=1)
     got = np.concatenate(list(sv.stream(padded, n_frames=T)))
     np.testing.assert_allclose(got, want, rtol=0, atol=STREAM_TOL)
+
+
+# ----------------------------------------------------------------------
+# The vocoder's passes through the generator's graph cache
+# ----------------------------------------------------------------------
+def _eager_stream(gen, sv, mel):
+    """The stream's windows run eagerly, one ``gen(...)`` each: the
+    windows and crops of ``StreamingVocoder.stream``."""
+    T = mel.shape[1]
+    ext = np.full((mel.shape[0], T + sv.window), np.log(1e-5), np.float32)
+    ext[:, :T] = mel
+    if T + sv.halo <= sv.window:
+        plan = [(0, 0, T)]
+    else:
+        plan = sv.windows(T)
+    return [gen(torch.from_numpy(ext[None, :, ws:ws + sv.window]))
+            [0, rel * 8:(rel + n) * 8].numpy() for ws, rel, n in plan]
+
+
+@pytest.mark.parametrize("T", [20, 75])
+def test_stream_through_the_window_graph_equals_eager_and_jax(rng_np, T):
+    """Every window of a stream is one pass of the generator's "window"
+    entry (one shape, one entry); the chunks equal the windows run eagerly
+    and, at widths no stage takes K5, the JAX ``StreamingVocoder``."""
+    jgen, params = _jax_generator(STAGED, seed=3)
+    gen = _port_generator(STAGED, params)
+    mel = rng_np.standard_normal((STAGED["num_mels"], T)).astype(np.float32)
+    sv = StreamingVocoder(gen, chunk_frames=16)
+    chunks = list(sv.stream(mel))
+    eager = _eager_stream(gen, sv, mel)
+    assert len(chunks) == len(eager)
+    for got, want in zip(chunks, eager):
+        np.testing.assert_array_equal(got, want)
+    cache = gen.graphs()
+    assert cache.keys() == {("window", torch.float32)} and len(cache) == 1
+    jsv = jstreaming.StreamingVocoder(jgen, params, chunk_frames=16,
+                                      blocked=False)
+    want = np.concatenate([np.asarray(c) for c in jsv.stream(mel)])
+    np.testing.assert_allclose(np.concatenate(chunks), want, rtol=1e-4,
+                               atol=1e-5)
+
+
+def test_stream_chunks_survive_outputs_that_alias(tiny_gen, rng_np,
+                                                  monkeypatch):
+    """A replay writes every window into one static output; the stream
+    copies each crop into one of its two host buffers before the next
+    window and each chunk out of its buffer before the buffer takes the
+    window after next, so the chunks (collected, not consumed one by one)
+    still equal the eager ones."""
+    mel = _mel(rng_np, 75)
+    sv = StreamingVocoder(tiny_gen, chunk_frames=16)
+    want = list(sv.stream(mel))
+    static = {}
+    replayed = hifigan.HiFiGanGenerator.replayed
+
+    def aliasing(self, mel, dtype=torch.float32, label="vocode"):
+        out = replayed(self, mel, dtype, label)
+        if label not in static:
+            static[label] = out.clone()
+        return static[label].copy_(out)
+
+    monkeypatch.setattr(hifigan.HiFiGanGenerator, "replayed", aliasing)
+    buffers = []
+    made = StreamingVocoder._buffers
+
+    def counted(self):
+        buffers.append(made(self))
+        return buffers[-1]
+
+    monkeypatch.setattr(StreamingVocoder, "_buffers", counted)
+    got = list(sv.stream(mel))
+    assert len(got) == len(want) == 5 and len(buffers) == 1
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_vocode_mels_through_the_cache_equals_eager(rng_np):
+    """``vocode_mels`` runs one entry per (rows, padded length) and gives
+    what the generator called eagerly on the same padded batch gives."""
+    _, params = _jax_generator(TINY, seed=0)
+    gen = _port_generator(TINY, params)
+    mels = [_mel(rng_np, t) for t in (5, 17, 16, 40, 9)]
+    wavs = hifigan.vocode_mels(gen, mels, bucket=16, max_batch=2)
+    cache = gen.graphs()
+    sigs = sorted(s[1][0][0] for _, s in cache.entries)
+    # 16: rows (5, 16), then (9,); 32: (17,); 48: (40,)
+    assert sigs == sorted([(2, 16, 16), (1, 16, 16), (1, 16, 32),
+                           (1, 16, 48)])
+    assert cache.keys() == {("vocode", torch.float32)}
+    for mel, wav in zip(mels, wavs):
+        t_pad = max(-(-mel.shape[1] // 16) * 16, 16)
+        ext = np.full((1, 16, t_pad), np.log(1e-5), np.float32)
+        ext[0, :, :mel.shape[1]] = mel
+        solo = gen(torch.from_numpy(ext)).numpy()[0, :mel.shape[1] * 8]
+        np.testing.assert_allclose(wav, solo, rtol=1e-5, atol=1e-6)
+    again = hifigan.vocode_mels(gen, mels, bucket=16, max_batch=2)
+    assert gen.graphs() is cache and len(cache) == 4
+    for a, b in zip(again, wavs):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_an_in_place_weight_update_drops_the_vocoder_graphs(rng_np):
+    """A parameter changed in place (K5's programs repack on it) empties
+    the generator's cache, so no replay reads new staged-conv weights
+    beside stale K5 programs; the next pass runs on the new weights."""
+    _, params = _jax_generator(TINY, seed=0)
+    gen = _port_generator(TINY, params)
+    mel = _mel(rng_np, 32)[None]
+    before = gen.replayed(mel).clone()
+    cache = gen.graphs()
+    assert len(cache) == 1 and gen.graphs() is cache
+    with torch.no_grad():
+        gen.resblocks[0].convs1[0].weight.mul_(0.5)
+    fresh = gen.graphs()
+    assert fresh is not cache and len(fresh) == 0
+    after = gen.replayed(mel)
+    np.testing.assert_array_equal(after.numpy(),
+                                  gen(torch.from_numpy(mel)).numpy())
+    assert not torch.equal(after, before)
+    with torch.no_grad():  # a staged conv's weight: dropped as well
+        gen.conv_pre.weight.mul_(0.5)
+    assert len(gen.graphs()) == 0
