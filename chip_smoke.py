@@ -198,7 +198,8 @@ result line):
    mels and previews checked, its seconds and the graphs its engine
    captures anew after each ``update_params``), its first 3 steps (two
    captures and a replay: two graphs a step around the all-reduce)
-   against the same without a group (one graph a step), bit-equal, resume from 3 against the uninterrupted 6,
+   against the same without a group (the same two graphs, no
+   collective), bit-equal, resume from 3 against the uninterrupted 6,
    SIGTERM to the CLI as its own process, the loop timed and profiled
    with the default loader beside ``make_train_step`` alone from 6 (every
    step and validation batch a graph replay after its signature's
@@ -2291,6 +2292,40 @@ def eager_vocoder(gen, cache):
 STREAM_ROUNDS = 5  # one window eager, replayed, replayed, eager a round
 
 
+def vocode_replay(gen, mel, bucket):
+    """``vocode_mels`` on a second mel (``mel`` reversed in time) of a
+    bucket whose graph is captured: a replay, with no capture and no K5
+    launch at the wrappers, bit-equal to the same call with the
+    generator's graphs run eagerly, and K5's 3 launches of the bucket
+    counted on the device in a profiled replay."""
+    from daft_exprt_tpu_torch.vocoder.hifigan import vocode_mels
+
+    other = np.ascontiguousarray(mel[:, ::-1])
+    vg = vocoder_graphs(gen)
+    captures, replays = vg.graphs.captures, vg.graphs.replays
+    before = _counts(vg)
+    got = vocode_mels(gen, [other], bucket=bucket)[0]
+    launches = _launches(before, vg)
+    with eager_vocoder(gen, eager_cache(gen.device)):
+        want = vocode_mels(gen, [other], bucket=bucket)[0]
+    prof = profile_kernels(lambda: vocode_mels(gen, [other], bucket=bucket),
+                           {"k5_ms": K5_KERNELS})
+    report = {"bucket": bucket, "samples": int(got.size),
+              "bit_equal": bool(np.array_equal(got, want)),
+              "captures": vg.graphs.captures - captures,
+              "replays": vg.graphs.replays - replays,
+              "launches": launches,
+              "on_device": prof and prof["on_device"]}
+    print("vocode_mels replayed", json.dumps(report), flush=True)
+    if not report["bit_equal"] or report["captures"] \
+            or report["replays"] != 2 or launches["k5"] != 0 \
+            or launches["k5_replayed"] != 3 or not np.isfinite(got).all():
+        raise AssertionError(f"vocode_mels replayed against eager: {report}")
+    check_on_device(prof, {"k5": 3, "k1": 0},
+                    "a replayed vocode_mels bucket")
+    return report
+
+
 def stream_utterance(engine, gen, request):
     """One long utterance (the longest row of the overflow request's mel)
     through StreamingVocoder, every window a replay of the generator's
@@ -2355,6 +2390,7 @@ def stream_utterance(engine, gen, request):
     window_ms = alternating_ms({"eager": in_eager, "replayed": one_window},
                                rounds=STREAM_ROUNDS)
     recaptured = vg.graphs.captures - captures
+    buckets = vocode_replay(gen, mel, T + sv.halo)
     control = StreamingVocoder(gen, halo_frames=1).vocode(mel)
     report = {"frames": T, "chunk_frames": sv.chunk, "halo_frames": sv.halo,
               "windows": len(chunks), "first_chunk_ms": first * 1e3,
@@ -2365,6 +2401,7 @@ def stream_utterance(engine, gen, request):
               "x_realtime": got.size / SAMPLE_RATE / total,
               "replays_equal_eager": bit_equal,
               "captures_after_warm_up": recaptured,
+              "vocode_mels_replay": buckets,
               "launches": launches,
               "graphs": graph_report(vg),
               "profile": prof,
@@ -3107,7 +3144,7 @@ def train(hp, conv_ff, warmup=2, steps=5):
           f"{len(step.graphs)}, captures {step.graphs.captures}",
           flush=True)
     if launches != want or captured != want or replayed != want_replayed \
-            or fused_fft_block.launches != 0 or step.graphs.captures != 1:
+            or fused_fft_block.launches != 0 or step.graphs.captures != 2:
         raise AssertionError(f"training launches {launches}, captured "
                              f"{captured}, replayed {replayed}")
     # K2's tensor-core launches encode their maps anew: q/k/v forward, and
@@ -3119,16 +3156,22 @@ def train(hp, conv_ff, warmup=2, steps=5):
         raise AssertionError(f"K2 encoded {maps} tensor maps, expected "
                              f"{k2_maps}")
 
-    eager = [_step_run(hp, batch, seeds, eager=True)[:2] for _ in range(2)]
-    control_rows = _step_run(hp, batch, seeds, frozen=True)[0]
-    spread = {"metrics": _max_diff([eager[0][0]], [eager[1][0]]),
-              "params": _max_diff(eager[0][1], eager[1][1])}
+    # a second eager run measures the eager steps' own spread, needed only
+    # where the replays differ from the first
+    eager = [_step_run(hp, batch, seeds, eager=True)]
     diff = {"metrics": _max_diff([graph_rows], [eager[0][0]]),
             "params": _max_diff(graph_params, eager[0][1])}
+    spread = {"metrics": 0.0, "params": 0.0}
+    if diff["metrics"] or diff["params"]:
+        eager.append(_step_run(hp, batch, seeds, eager=True))
+        spread = {"metrics": _max_diff([eager[0][0]], [eager[1][0]]),
+                  "params": _max_diff(eager[0][1], eager[1][1])}
+    control_rows = _step_run(hp, batch, seeds, frozen=True)[0]
     control = _max_diff([control_rows[1:]], [eager[0][0][1:]])
     equality = {"steps": STEP_CHECKS, "replays": STEP_CHECKS - 1,
                 "graphs_vs_eager_max_abs": diff,
-                "eager_vs_eager_max_abs": spread,
+                "eager_runs": len(eager),
+                "eager_vs_eager_max_abs": spread if len(eager) > 1 else None,
                 "bit_equal": diff["metrics"] == diff["params"] == 0.0,
                 "frozen_seed_control_max_abs": control,
                 "loss_graphs": graph_rows[:, 0].tolist(),
@@ -3139,12 +3182,10 @@ def train(hp, conv_ff, warmup=2, steps=5):
     if not all(diff[k] <= spread[k] for k in diff) or not control > 0.0 \
             or not torch.isfinite(graph_rows).all():
         raise AssertionError(f"replayed steps against eager: {equality}")
+    # eager steps (the first eager run's step, its entries run eagerly)
+    # against replays, timed in alternating rounds on one seeded batch
+    eager_model, eager_step, eager_gen = eager[0][2:]
     del eager
-
-    # eager steps (the graph run's entries off) against replays, timed in
-    # alternating rounds on one seeded batch
-    eager_model, eager_step, eager_gen = _step_run(
-        hp, batch, seeds[:1], eager=True)[2:]
 
     def run_steps(st, g, k, it0):
         torch.cuda.synchronize()
@@ -3242,6 +3283,104 @@ def train(hp, conv_ff, warmup=2, steps=5):
                        if not k.endswith("tensor_core")}}
     del model, eager_model
     return report, all_launches
+
+
+FPS = 22050.0 / 256.0  # mel frames a second
+
+
+def corpus_lengths(n=16600, seed=0):
+    """(n_symbols, n_frames) of an LJ+ESD-like corpus (the JAX repo's
+    ``tools/padding_report.py`` corpus model, copied: LJSpeech clips
+    ~N(6.5 s, 2.2 s) in [1.1, 10.1] s, ESD ~N(2.9 s, 1.0 s) in [1.0, 7.0]
+    s, 13.1k + 3.5k utterances, ~12.5 phones a second jittered)."""
+    rng = np.random.default_rng(seed)
+
+    def trunc_normal(mean, std, lo, hi, k):
+        out = np.empty(k)
+        filled = 0
+        while filled < k:
+            draw = rng.normal(mean, std, size=k - filled)
+            draw = draw[(draw >= lo) & (draw <= hi)]
+            out[filled:filled + len(draw)] = draw
+            filled += len(draw)
+        return out
+
+    lengths = []
+    n_lj = int(n * 13100 / (13100 + 3500))
+    for k, args in ((n_lj, (6.5, 2.2, 1.1, 10.1)),
+                    (n - n_lj, (2.9, 1.0, 1.0, 7.0))):
+        secs = trunc_normal(*args, k)
+        frames = np.maximum((secs * FPS).astype(int), 8)
+        rate = rng.normal(12.5, 1.5, size=k).clip(8.0, 18.0)
+        symbols = np.maximum((secs * rate).astype(int), 2)
+        lengths += list(zip(symbols.tolist(), frames.tolist()))
+    return lengths
+
+
+SIGNATURE_EPOCHS = 3
+
+
+def step_signatures():
+    """``--step-signatures``: the train step's batch signatures over
+    ``SIGNATURE_EPOCHS`` epochs of the bucketed loader's plan on an
+    LJ+ESD-like corpus (``corpus_lengths``) at the flagship's defaults
+    (16 x 3 rows a step), then one flagship step on the card at each, in
+    the order they first appear: the step cache's graphs, captures,
+    evictions and pool bytes after each new signature, and the capture
+    seconds."""
+    from daft_exprt_tpu_torch.data.loader import plan_steps
+    from daft_exprt_tpu_torch.training.step import dropout_seed
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    _build.build()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    hp = flagship_hparams()
+    lengths = corpus_lengths()
+    order, per_epoch = [], []
+    for epoch in range(SIGNATURE_EPOCHS):
+        shapes = [(L, T) for _, L, T in plan_steps(lengths, hp,
+                                                   hp.seed + epoch)]
+        per_epoch.append({"steps": len(shapes),
+                          "signatures": len(set(shapes))})
+        order += [sh for sh in dict.fromkeys(shapes) if sh not in order]
+    model = DaftExprt(hp, seed=0)
+    step = make_train_step(model, hp)
+    gen = torch.Generator(device="cuda")
+    rng = np.random.default_rng(5)
+    rows = []
+    for i, (L, T) in enumerate(order):
+        batch = train_batch(hp, rng, L, T)
+        gen.manual_seed(dropout_seed(hp, i + 1))
+        metrics = step(batch, gen, i + 1)
+        torch.cuda.synchronize()
+        if not np.isfinite(float(metrics["loss"])):
+            raise AssertionError(f"step at (L, T) = ({L}, {T}): loss "
+                                 f"{float(metrics['loss'])}")
+        g = step.graphs
+        rows.append({"L": L, "T": T, "graphs": len(g),
+                     "captures": g.captures, "evictions": g.evictions,
+                     "pool_bytes": g.pool_bytes()})
+    pools = [r["pool_bytes"] for r in rows]
+    growth = np.diff(pools)
+    report = {"card": smi, "corpus": "LJ+ESD-like, 16600 utterances",
+              "epochs": per_epoch, "signatures": len(order),
+              "max_graphs": step.graphs.max_entries,
+              "graphs": len(step.graphs), "evictions": step.graphs.evictions,
+              "captures": step.graphs.captures,
+              "capture_s": step.graphs.capture_seconds,
+              "pool_bytes_first": pools[0], "pool_bytes_last": pools[-1],
+              "pool_growth_median_bytes": float(np.median(growth)),
+              "pool_growth_max_bytes": int(growth.max()),
+              "memory_allocated_bytes": torch.cuda.memory_allocated(),
+              "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+              "steps": rows}
+    print("step signatures", json.dumps(report), flush=True)
+    return 0
 
 
 def small_wide_hparams(**overrides):
@@ -3602,22 +3741,32 @@ print("EXTRACTION", json.dumps(max(r["energy_max_rel_err"] for r in rows)))
 
 def extraction_processes(n=EXTRACTION_PROCESSES):
     """``extract_style_bank`` (card against CPU, frame energy within
-    ``ENERGY_REL_TOL``) again in ``n`` fresh processes, where it is the
-    first card work: the largest energy error of each; fails if one
-    fails."""
-    errs = []
-    for _ in range(n):
-        run = subprocess.run([sys.executable, "-c", EXTRACTION_SCRIPT],
-                             cwd=ROOT, capture_output=True, text=True,
-                             timeout=300)
-        lines = [ln for ln in run.stdout.splitlines()
-                 if ln.startswith("EXTRACTION ")]
-        if run.returncode != 0 or not lines:
-            raise AssertionError(f"style extraction in a fresh process: "
-                                 f"{run.stdout[-2000:]} {run.stderr[-2000:]}")
+    ``ENERGY_REL_TOL``) again in ``n`` fresh processes, all started
+    together, where it is the first card work: the largest energy error
+    of each; fails if one fails."""
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", EXTRACTION_SCRIPT],
+                              cwd=ROOT, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for _ in range(n)]
+    errs, failed = [], []
+    for proc in procs:
+        try:
+            out, err = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        lines = [ln for ln in out.splitlines() if ln.startswith("EXTRACTION ")]
+        if proc.returncode != 0 or not lines:
+            failed.append(f"{out[-2000:]} {err[-2000:]}")
+            continue
         errs.append(json.loads(lines[-1].split(" ", 1)[1]))
+    if failed:
+        raise AssertionError(f"style extraction in a fresh process: "
+                             f"{failed[0]}")
     report = {"processes": n, "energy_max_rel_err": errs,
-              "limit": ENERGY_REL_TOL}
+              "limit": ENERGY_REL_TOL,
+              "seconds": time.perf_counter() - t0}
     print("style extraction in fresh processes", json.dumps(report),
           flush=True)
     return report
@@ -4645,8 +4794,9 @@ def training_runtime(smi, train_report, keep_fine_tuning_dataset=None):
                 str(start)]
 
         # 1. the first steps under NCCL (world of one: the step's two
-        # graphs around the all-reduce) and without a group (one graph):
-        # both batch signatures of an epoch captured, then a replay
+        # graphs around the all-reduce) and without a group (the same two
+        # graphs, no collective): both batch signatures of an epoch
+        # captured, then a replay
         first = {}
         for name, group in (("first_nccl", True), ("first_plain", False)):
             write_experiment(exps, name, corpus, **flagship)
@@ -6520,8 +6670,79 @@ def extraction_ops(n: int) -> int:
     return 1 if counts["warmed"][1] else 0
 
 
+# the train step alone (flagship, then wide; 16 x 3 rows at L=128,
+# T=768): 3 warm-up steps, 3 rounds of 10, one profiled step
+AB_STEP = """
+import json, time, numpy as np, torch, chip_smoke as cs
+from daft_exprt_tpu_torch.training.step import dropout_seed, make_train_step
+cs._build.build()
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+ab = {}
+for name, make_hp in (("", cs.flagship_hparams),
+                      ("wide_", cs.wide_head_hparams)):
+    hp = make_hp(batch_size=16, accumulation_steps=3)
+    batch = cs.train_batch(hp, np.random.default_rng(5), 128, 768)
+    model = cs.DaftExprt(hp, seed=0)
+    step = make_train_step(model, hp)
+    gen = torch.Generator(device="cuda")
+
+    def run(k, it0):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(k):
+            gen.manual_seed(dropout_seed(hp, it0 + i))
+            step(batch, gen, it0 + i)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / k * 1e3
+
+    run(3, 1)
+    ms = [run(10, 4 + 10 * r) for r in range(3)]
+    prof = cs.profile_kernels(lambda: step(batch, gen, 40), {})
+    ab.update({name + "step_ms": float(np.median(ms)),
+               name + "step_ms_rounds": ms,
+               name + "device_busy_ms": prof and prof["device_busy_ms"],
+               name + "idle_share": prof and prof["idle_share"],
+               name + "graphs": len(step.graphs)})
+    del model, step
+print("AB", json.dumps(ab))
+"""
+# cli.synthesize --vocoder in this process on the text-serving phase's
+# four pre-phonemized lines, three times: each call loads the generator
+# afresh (a one-shot run: vocode_mels' buckets run once each)
+AB_SYNTH = """
+import json, shutil, tempfile
+from pathlib import Path
+import torch, chip_smoke as cs
+from daft_exprt_tpu_torch.checkpoint import save_reference_checkpoint
+cs._build.build()
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+tmp = Path(tempfile.mkdtemp(prefix="ab_synth_"))
+try:
+    hp = cs.flagship_hparams()
+    model = cs.DaftExprt(hp, seed=0)
+    cs.pin_durations(model)
+    ckpt = tmp / "DaftExprt_seed0.pt"
+    save_reference_checkpoint(str(ckpt), model, hp)
+    del model
+    voc, voc_cfg = cs.write_seed0_vocoder(tmp)
+    bank, _ = cs.extract_style_bank(hp, tmp, "")
+    text = tmp / "lines.txt"
+    text.write_text("\\n".join(cs.TTS_BRACES) + "\\n")
+    seconds = [cs.run_cli(
+        ["--checkpoint", str(ckpt), "--text_file", str(text),
+         "--style_bank", str(bank), "--output_dir", str(tmp / f"out{i}"),
+         "--batch_size", "4", "--vocoder", str(voc),
+         "--vocoder_config", str(voc_cfg)])[0] for i in range(3)]
+finally:
+    shutil.rmtree(tmp, ignore_errors=True)
+print("AB", json.dumps({"cli_first_s": seconds[0],
+                        "cli_again_s": seconds[1:]}))
+"""
 AB_SCRIPTS = {"--ab-train": AB_TRAIN, "--ab-k1": AB_K1, "--ab-serve": AB_SERVE,
-              "--ab-k2": AB_K2, "--ab-text": AB_TEXT}
+              "--ab-k2": AB_K2, "--ab-text": AB_TEXT, "--ab-step": AB_STEP,
+              "--ab-synth": AB_SYNTH}
 
 
 def ab_train(parent: str, rounds: int = 2, script: str = AB_TRAIN) -> int:
@@ -6591,53 +6812,79 @@ def main(mode: str | None = None) -> int:
         vocoder_learning(smi)
         return 0
 
+    # host seconds of each phase, from the end of the one before
+    phases, last = {}, [time.perf_counter()]
+
+    def mark(name):
+        now = time.perf_counter()
+        phases[name] = now - last[0]
+        last[0] = now
+        print(f"phase {name}: {phases[name]:.1f} s", flush=True)
+
     gen = torch.Generator().manual_seed(0)
     k1, k1_plan = check_k1(gen)
     k1_design = k1_variants(gen, np.random.default_rng(14))
+    mark("k1")
     rows, launches, engines, requests = serve(flagship_hparams())
     name, pt, inputs = requests[2]  # measure, bucket 512
     profile = profile_request(engines[name], inputs, pt)
+    mark("serve")
     cpu_err = check_against_cpu()
     cumsum = time_duration_cumsum(flagship_hparams())
+    mark("cpu_and_cumsum")
     k5, k5_plan, k5_design = check_k5()
+    mark("k5")
     vocoder = HiFiGanGenerator(seed=0)
     audio, k5_launches, audio_engines, audio_requests = serve_audio(
         engines["speculate"].model, vocoder)
     two_step_err = audio_equals_two_step(audio_engines["audio"], vocoder,
                                          audio_requests[1])
     audio_profile = profile_audio(audio_engines["audio"], audio_requests[1])
+    mark("serve_audio")
     stream = stream_utterance(audio_engines["audio_rerun"], vocoder,
                               audio_requests[-1])
     audio_cpu = audio_against_cpu()
+    mark("stream_and_audio_cpu")
     del audio_engines, audio_requests
     graphs = engine_graphs(vocoder, smi)
+    mark("engine_graphs")
     wide_serving = serve_wide(vocoder)
     wide_serving["card_vs_cpu_f32"] = {
         "mel_max_abs_err": check_against_cpu(small_wide_hparams),
         "eval": eval_against_cpu(small_wide_hparams)}
+    mark("serve_wide")
     del vocoder
     k2_plan = check_k2_plan()
     k2 = check_k2()
     k3_plan = check_k3_plan()
     k3 = check_conv_ff("K3", K3_SHAPES, gen, 4)
+    mark("k2_k3")
     training, train_launches = train(flagship_hparams(
         batch_size=16, accumulation_steps=3), "conv_ff_train")
     train_cpu = train_against_cpu(flagship_hparams, "conv_ff_train")
+    mark("train")
     k4_plan = check_k4_plan()
     k4 = check_conv_ff("K4", K4_SHAPES, gen, 9)
+    mark("k4")
     wide, wide_launches = train(wide_head_hparams(
         batch_size=16, accumulation_steps=3), "conv_ff_train_blocked")
     wide_cpu = train_against_cpu(small_wide_hparams, "conv_ff_train_blocked")
+    mark("train_wide")
     tts = text_serving(smi)
+    mark("text_serving")
     pre = preprocessing(smi)
+    mark("preprocessing")
     kept = Path(tempfile.mkdtemp(prefix="fine_tuning_dataset_"))
     try:
         runtime = training_runtime(smi, training,
                                    keep_fine_tuning_dataset=kept / "data")
+        mark("training_runtime")
         vocoder_run = vocoder_training(smi, kept / "data")
     finally:
         shutil.rmtree(kept, ignore_errors=True)
+    mark("vocoder_training")
     dp = data_parallel(smi)
+    mark("data_parallel")
 
     timed = [r for r in k1 if r["dtype"] == "bfloat16"]
     head = next(r for r in timed if r["shape"] == "frame_decoder")
@@ -6793,9 +7040,8 @@ def main(mode: str | None = None) -> int:
         launches_data_parallel_tensor_core=dp["main_path_launches"][
             "k1_tensor_core"],
         data_parallel=dp)
-    print(f"chip_smoke: {time.perf_counter() - t0:.1f} s in all, the "
-          f"vocoder-training phase {vocoder_run['seconds']:.1f} s, the "
-          f"data-parallel phase {dp['seconds']:.1f} s", flush=True)
+    print(f"chip_smoke: {time.perf_counter() - t0:.1f} s in all, by phase "
+          f"{json.dumps(phases)}", flush=True)
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -6805,8 +7051,14 @@ def main(mode: str | None = None) -> int:
 
 
 if __name__ == "__main__":
-    if len(sys.argv) == 3 and sys.argv[1] in AB_SCRIPTS:
-        sys.exit(ab_train(sys.argv[2], script=AB_SCRIPTS[sys.argv[1]]))
+    if len(sys.argv) in (3, 4) and sys.argv[1] in AB_SCRIPTS:
+        sys.exit(ab_train(sys.argv[2], rounds=int((sys.argv[3:] or [2])[0]),
+                          script=AB_SCRIPTS[sys.argv[1]]))
+    if sys.argv[1:] == ["--step-signatures"]:
+        if not torch.cuda.is_available():
+            print("chip_smoke: CUDA is not available", file=sys.stderr)
+            sys.exit(1)
+        sys.exit(step_signatures())
     if len(sys.argv) == 3 and sys.argv[1] == "--extraction-processes":
         if not torch.cuda.is_available():
             print("chip_smoke: CUDA is not available", file=sys.stderr)

@@ -43,6 +43,13 @@ K5's by default, K2-K4's for the training step), and
 from the capture, not counted at a launch, which only a trace of the
 device can confirm.
 
+A cache may hold at most ``max_entries`` entries: a new signature then
+evicts the least recently run entry (its graph, static inputs and
+outputs), and that signature, if it comes back, runs eagerly and is
+captured again. The training step bounds its cache so: a corpus's batch
+signatures are a few dozen an epoch, but the loader's buckets allow
+hundreds, each holding a full set of gradients.
+
 A pass that draws random numbers names its generators (``generators``):
 each capture registers their states with the graph, so that a replay
 draws from the generator's current seed and offset and advances the
@@ -164,18 +171,23 @@ class GraphCache:
         capture whose growth an entry records (:data:`CAPTURED`)
     :param generators: the ``torch.Generator`` objects the passes draw
         from, registered with every graph
+    :param max_entries: the most entries kept (None: no bound); the least
+        recently run is evicted for a new one
     """
 
-    def __init__(self, device, counters=CAPTURED, generators=()):
+    def __init__(self, device, counters=CAPTURED, generators=(),
+                 max_entries=None):
         self.device = torch.device(device)
         self.cuda = self.device.type == "cuda"
         self.counters = tuple(counters)
         self.generators = tuple(generators)
+        self.max_entries = max_entries
         self.pool = torch.cuda.graph_pool_handle() if self.cuda else None
-        self.entries: dict = {}
+        self.entries: dict = {}     # in the order they were last run
         self.captures = 0           # graphs captured since construction
         self.capture_seconds = 0.0  # host seconds spent capturing them
         self.replays = 0            # graph replays since construction
+        self.evictions = 0          # entries evicted for max_entries
         # derived: the launches each replayed capture recorded, summed
         self.replayed = (0,) * len(self.counters)
 
@@ -194,6 +206,9 @@ class GraphCache:
         without it); their graphs and static tensors go with them."""
         for k in [k for k in self.entries if select is None or select(k[0])]:
             del self.entries[k]
+        self._new_pool_if_empty()
+
+    def _new_pool_if_empty(self):
         if self.cuda and not self.entries:
             # the last graph released the pool: capturing into a released
             # pool's id fails inside the caching allocator
@@ -223,8 +238,14 @@ class GraphCache:
         """
         leaves, spec = _flatten(args)
         sig = (spec, tuple(_leaf_signature(x) for x in leaves))
-        entry = self.entries.get((key, sig))
+        # taken out and put back last: the entries stay in the order of use
+        entry = self.entries.pop((key, sig), None)
         if entry is None:
+            if self.max_entries is not None \
+                    and len(self.entries) >= self.max_entries:
+                del self.entries[next(iter(self.entries))]
+                self.evictions += 1
+                self._new_pool_if_empty()
             entry = _Entry(leaves, self.device, len(self.counters))
             entry.load(leaves)
             out = fn(*_unflatten(spec, entry.inputs))
@@ -233,6 +254,7 @@ class GraphCache:
                 entry.keep = keep() if keep is not None else ()
             self.entries[(key, sig)] = entry
             return out
+        self.entries[(key, sig)] = entry
         entry.load(leaves)
         if not self.cuda:
             return fn(*_unflatten(spec, entry.inputs))

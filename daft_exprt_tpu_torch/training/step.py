@@ -23,9 +23,11 @@ logged learning rate). Dropout draws from a generator registered with the
 graph (``torch.cuda.CUDAGraph.register_generator_state``) whose state is
 the caller's generator's before the step and is handed back after it: a
 replay draws what the eager step would. Nothing inside a step reads a
-value on the host. With a process group the step is two graphs, the
-micro-batch loop and the update, with the all-reduce between them (the
-only place the gradients exist for a collective). A replay moves the
+value on the host. The step is two graphs, the micro-batch loop (one a
+batch signature) and the update (one for every signature), with the
+all-reduce between them where a process group is initialised (the only
+place the gradients exist for a collective): one layout with or without
+ranks. A replay moves the
 parameters and moments without the autograd version counters noticing,
 so the step bumps them after it: caches keyed on them (K1's packed
 weights, K3/K4's bf16 weights) see every update. On the CPU the same
@@ -75,6 +77,10 @@ LOSS_KEYS = ("speaker_loss", "post_mult_loss", "duration_loss",
 # the train step's metrics, in the order of its graph's output vector
 TRAIN_METRICS = ("loss",) + LOSS_KEYS + ("grad_norm", "learning_rate")
 EVAL_METRICS = ("loss",) + LOSS_KEYS + ("speaker_accuracy", "count")
+# the most graphs a train step keeps: its update and the micro-batch loops
+# of the batch signatures last run (an LJ+ESD-like corpus needs 26-30 an
+# epoch at the default buckets; each keeps a full set of gradients)
+STEP_GRAPHS = 64
 # the training kernels' counts of launches under capture: K2, K3, K4 in
 # each direction, and of those the tensor-core instance's
 TRAIN_CAPTURED = tuple((fn, f"{tc}{d}_captured")
@@ -260,13 +266,17 @@ def make_train_step(model, hp, device=None):
     accum = hp.accumulation_steps
     device = params[0].device if device is None else torch.device(device)
     rng = torch.Generator(device=device)
-    graphs = GraphCache(device, TRAIN_CAPTURED, generators=(rng,))
+    graphs = GraphCache(device, TRAIN_CAPTURED, generators=(rng,),
+                        max_entries=STEP_GRAPHS)
     state = params + optimizer.mu + optimizer.nu
 
+    sizes = [p.numel() for p in params] + [1 + len(LOSS_KEYS)]
+
     def accumulate(generator, iteration, *inputs):
-        """The micro-batch loop: (gradients, the mean loss and its seven
-        terms as one vector). K3/K4's bf16 weights are cast inside it, so
-        that a graph casts them at every replay."""
+        """The micro-batch loop: one float32 vector of the gradients,
+        flattened in parameter order, then the mean loss and its seven
+        terms. K3/K4's bf16 weights are cast inside it, so that a graph
+        casts them at every replay."""
         drop_tc_weights()
         for p in params:
             p.grad = None
@@ -283,16 +293,19 @@ def make_train_step(model, hp, device=None):
             tot_loss += loss.detach() / accum
             for k in LOSS_KEYS:
                 indiv[k] += terms[k].detach() / accum
-        grads = [torch.zeros_like(p) if p.grad is None else p.grad
-                 for p in params]
-        return grads, torch.stack([tot_loss] + [indiv[k] for k in LOSS_KEYS])
+        return torch.cat(
+            [torch.zeros(p.numel(), device=device) if p.grad is None
+             else p.grad.reshape(-1) for p in params]
+            + [tot_loss[None]] + [indiv[k][None] for k in LOSS_KEYS])
 
-    def update(grads, losses, count, iteration):
-        """Norm and update: the metric vector in ``TRAIN_METRICS`` order."""
+    def update(flat, count, iteration):
+        """Norm and update from ``accumulate``'s vector: (the metric vector
+        in ``TRAIN_METRICS`` order, the gradients as views of ``flat``)."""
+        grads = [g.view_as(p) for g, p in zip(flat.split(sizes), params)]
         grad_norm = global_norm(grads)
         optimizer.update(grads, count)
-        return torch.cat([losses, grad_norm[None],
-                          schedule(iteration)[None]])
+        return torch.cat([flat[-len(LOSS_KEYS) - 1:], grad_norm[None],
+                          schedule(iteration)[None]]), grads
 
     def step(batch, generator, iteration):
         # a graph reads the parameters and moments at their addresses: one
@@ -306,21 +319,15 @@ def make_train_step(model, hp, device=None):
         count = np.asarray(optimizer.count + 1, np.float32)
         with _Drawing(rng, generator) as drawing:
             key = drawing is None  # a step without a generator draws none
-            if torch.distributed.is_initialized():
-                grads, losses = graphs.run(
-                    ("accumulate", key),
-                    lambda i, *x: accumulate(drawing, i, *x), (it, *inputs))
-                # the mean over the global batch; one collective a step
-                all_reduce_mean(grads + [losses])
-                vector = graphs.run("update", update,
-                                    (grads, losses, count, it))
-            else:
-                def fused(i, c, *x):
-                    grads, losses = accumulate(drawing, i, *x)
-                    return update(grads, losses, c, i), grads
-                vector, grads = graphs.run(("step", key), fused,
-                                           (it, count, *inputs))
-        # the gradients of this step (a replay rewrote the graph's own)
+            flat = graphs.run(
+                ("accumulate", key),
+                lambda i, *x: accumulate(drawing, i, *x), (it, *inputs))
+        if torch.distributed.is_initialized():
+            # the mean over the global batch; one collective a step
+            all_reduce_mean([flat])
+        vector, grads = graphs.run("update", update, (flat, count, it))
+        # the gradients of this step, views of the update's input (the
+        # next step rewrites them)
         for p, g in zip(params, grads):
             p.grad = g
         if graphs.cuda:

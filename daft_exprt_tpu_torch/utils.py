@@ -7,6 +7,7 @@ and the per-op device time of a ``torch.profiler`` trace.
 
 from __future__ import annotations
 
+import gc
 import logging
 import multiprocessing as mp
 import sys
@@ -90,6 +91,11 @@ def launch_multi_process(iterable, func, n_jobs: int, chunksize: int = 1,
     # stays batched in the main process.
     ctx = mp.get_context("fork")
     n = len(iterable)
+    # the parent's unreachable cycles are collected before the forks: a
+    # child's collector would otherwise finalize the CUDA objects among
+    # them (CUDA graphs, pinned buffers), and a CUDA call in a forked
+    # child aborts it
+    gc.collect()
     manager = ctx.Manager()
     queue = manager.Queue()
     listener = threading.Thread(target=_log_listener, args=(queue,))

@@ -65,6 +65,9 @@ V1_CONFIG = {
     # "2": ResBlock2 (one conv per dilation, official v3)
     "resblock": "1",
 }
+# the most graphs a generator keeps (the streamer's window, vocode_mels'
+# (rows, padded T) buckets), the least recently run evicted first
+VOCODER_GRAPHS = 64
 MEL_FLOOR = math.log(1e-5)  # the mel log-clamp floor: padding past a length
 
 
@@ -249,7 +252,8 @@ class HiFiGanGenerator(nn.Module):
         key = (self.device,) + tuple((p.data_ptr(), p._version)
                                      for p in self.parameters())
         if self._graphs is None or self._graphs[0] != key:
-            self._graphs = (key, GraphCache(self.device))
+            self._graphs = (key, GraphCache(self.device,
+                                            max_entries=VOCODER_GRAPHS))
         return self._graphs[1]
 
     @torch.no_grad()

@@ -459,3 +459,56 @@ def test_a_capture_registers_the_generators_and_draws_nothing(monkeypatch):
     torch.rand(3, generator=twin)
     assert torch.equal(gen.get_state(), twin.get_state())
     assert next(iter(cache.entries.values())).recorded == ()
+
+
+def test_a_bounded_cache_evicts_the_least_recently_run_entry(monkeypatch):
+    """With ``max_entries`` a new signature evicts the entry run longest
+    ago (a hit counts as a run); an evicted signature runs its pass again
+    as a first call; evicting the last entry takes a new pool id, as
+    ``drop`` does."""
+    ran = []
+
+    def fn(x):
+        ran.append(tuple(x.shape))
+        return x + 1
+
+    def arg(n):
+        return (np.zeros(n, np.float32),)
+
+    cache = graphs.GraphCache("cpu", max_entries=2)
+    for n in (1, 2, 1, 3):
+        cache.run("k", fn, arg(n))
+    assert [sig[1][0][0] for _, sig in cache.entries] == [(1,), (3,)]
+    assert cache.evictions == 1 and len(cache) == 2
+    ran.clear()
+    out = cache.run("k", fn, arg(2))  # a first call again
+    assert ran == [(2,)] and torch.equal(out, torch.ones(2))
+    assert [sig[1][0][0] for _, sig in cache.entries] == [(3,), (2,)]
+    assert cache.evictions == 2
+
+    class Graph:
+        def replay(self):
+            pass
+
+    class Context:
+        def __init__(self, *args, **kwargs):
+            pass
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", Graph)
+    monkeypatch.setattr(torch.cuda, "graph", Context)
+    monkeypatch.setattr(torch.cuda, "device", Context)
+    pools = iter(range(100))
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle",
+                        lambda: (0, next(pools)))
+    cache = graphs.GraphCache("cpu", max_entries=1)
+    cache.cuda, cache.pool = True, torch.cuda.graph_pool_handle()
+    cache.run("k", fn, arg(1))
+    assert cache.pool == (0, 0)
+    cache.run("k", fn, arg(2))
+    assert cache.pool == (0, 1) and len(cache) == 1 and cache.evictions == 1

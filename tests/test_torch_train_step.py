@@ -397,13 +397,40 @@ def test_steps_through_the_cache_equal_eager_steps():
         _eager_step(twin, opt, hp, batch, twin_gen, 7 + i)
         assert torch.equal(gen.get_state(), twin_gen.get_state())
         assert np.isfinite(float(metrics["loss"]))
-    assert step.graphs.keys() == {("step", False)}
-    assert len(step.graphs) == 1 and step.optimizer.count == opt.count == 3
+    assert step.graphs.keys() == {("accumulate", False), "update"}
+    assert len(step.graphs) == 2 and step.optimizer.count == opt.count == 3
     for (name, a), b in zip(model.named_parameters(), twin.parameters()):
         assert torch.equal(a, b), name
         assert torch.equal(a.grad, b.grad), name
     for a, b in zip(step.optimizer.mu + step.optimizer.nu, opt.mu + opt.nu):
         assert torch.equal(a, b)
+
+
+def test_a_bounded_step_cache_evicts_and_stays_equal_to_eager(monkeypatch):
+    """With room for two graphs, batch signatures A, B, A evict the
+    least recently run entry each time (the update is run every step and
+    stays); every step still equals the eager step written out."""
+    from daft_exprt_tpu_torch.training import step as step_mod
+
+    monkeypatch.setattr(step_mod, "STEP_GRAPHS", 2)
+    hp = _dropout_hparams()
+    sizes = [dict(max_symbols=12, max_frames=48),
+             dict(max_symbols=16, max_frames=40)]
+    model = DaftExprt(hp, device="cpu", seed=3)
+    twin = copy.deepcopy(model)
+    step = make_train_step(model, hp)
+    opt = Optimizer([p for _, p in twin.named_parameters()], hp)
+    gen, twin_gen = torch.Generator(), torch.Generator()
+    for i, k in enumerate((0, 1, 0)):
+        batch = _stacked_batch(hp, seed=10 * i, **sizes[k])
+        gen.manual_seed(100 + i)
+        twin_gen.manual_seed(100 + i)
+        step(batch, gen, 1 + i)
+        _eager_step(twin, opt, hp, batch, twin_gen, 1 + i)
+    assert step.graphs.evictions == 2 and len(step.graphs) == 2
+    assert step.graphs.keys() == {("accumulate", False), "update"}
+    for (name, a), b in zip(model.named_parameters(), twin.parameters()):
+        assert torch.equal(a, b), name
 
 
 def test_a_step_reads_no_value_on_the_host(setup, monkeypatch):
@@ -478,14 +505,18 @@ def test_a_replaced_parameter_drops_the_step_graphs(setup):
     gen = torch.Generator().manual_seed(0)
     step(s["batch"], gen, ITERATION)
     step(s["batch"], gen, ITERATION + 1)
-    entry = next(iter(step.graphs.entries.values()))
+    def entries():
+        return {key: e for (key, _), e in step.graphs.entries.items()}
+
+    before = entries()
     step(s["batch"], gen, ITERATION + 2)
-    assert next(iter(step.graphs.entries.values())) is entry
+    assert entries() == before
     w = model.frame_decoder.projection.linear_layer.weight
     w.data = w.data.clone()
     step(s["batch"], gen, ITERATION + 3)
-    assert len(step.graphs) == 1
-    assert next(iter(step.graphs.entries.values())) is not entry
+    after = entries()
+    assert after.keys() == before.keys() and len(step.graphs) == 2
+    assert all(after[k] is not before[k] for k in after)
 
 
 def test_eval_step_through_the_cache_equals_eager(setup):

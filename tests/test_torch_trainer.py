@@ -555,4 +555,4 @@ def test_validation_goes_through_the_eval_graphs_with_one_copy_a_batch(
     batch, _ = _batch(t)
     t.train_step(batch, torch.Generator().manual_seed(0), 41)
     assert t.optimizer.count == 41
-    assert t.train_step.graphs.keys() == {("step", False)}
+    assert t.train_step.graphs.keys() == {("accumulate", False), "update"}

@@ -11,15 +11,22 @@ convert``) on the same batches, at the JAX tests' tiny widths
 (tests/test_vocoder_train.py: a 16-channel generator, MPD channels (4, 8,
 8, 8), three MSD layers, hop 8 at 800 Hz) and batch 4 x 256 samples, a
 new batch every step (harmonic tones of random pitch, numpy seed 0). At
-200 steps the gate's own windows apply unscaled. Each step's losses are
-held to the 20-step parity test's bound (``STEP_REL_TOL``, rel 1e-4 of
-the JAX step's), and the gate's relative drop to the same bound.
+200 steps the gate's own windows apply unscaled.
 
-A control tells the GAN's own sensitivity from the port's: the JAX
-trainer again, from its weights scaled by ``1 + CONTROL_EPS`` (a float32
-rounding's size), against the unscaled JAX curve. The test prints, for
-the port and the control, the first step past the bound, the largest
-step error and the gate's drop.
+The GAN amplifies a rounding: JAX itself, from its weights scaled by
+``1 + eps`` for eps of one and two float32 roundings of either sign
+(``CONTROL_EPS``), leaves its own unscaled curve past the 20-step parity
+test's per-step bound (``STEP_REL_TOL``, rel 1e-4) after about 50 steps.
+These controls give JAX's own spread, and the port is held to it:
+
+- the port's first step past the bound is no earlier than the earliest
+  control's (it tracks JAX at least as long as a rounding of JAX does);
+- each loss's largest step error is within the largest of the controls';
+- the gate's relative drop is within the farthest control's distance from
+  JAX's.
+
+The test prints, for the port and each control, the first step past the
+bound, the largest step error and the gate's drop.
 
 Run: ``JAX_PLATFORMS=cpu python -m pytest tests/test_torch_vocoder_curves.py
 -m slow -q -s`` (prints both curves' gate drops and the largest step
@@ -42,7 +49,7 @@ from daft_exprt_tpu_torch.vocoder import train
 STEPS = 200
 BASELINE, WINDOW = 20, 20  # chip_smoke's SOAK_VOC_BASELINE, _WINDOW
 BATCH, SEGMENT, SR = 4, 256, 800
-CONTROL_EPS = 2.0 ** -23
+CONTROL_EPS = (2.0 ** -23, -2.0 ** -23, 2.0 ** -22, -2.0 ** -22)
 KEYS = ("loss_d", "loss_g", "mel_l1")
 
 
@@ -106,10 +113,13 @@ def test_port_and_jax_trainers_share_a_learning_curve():
     batches = _batches(STEPS)
     ref = _jax_curves(jstep, (g_wn, d_params, msd_state, tx_g.init(g_wn),
                               tx_d.init(d_params)), batches)
-    scaled = jax.tree.map(lambda a: a * np.float32(1 + CONTROL_EPS),
-                          (g_wn, d_params))
-    control = _jax_curves(jstep, (*scaled, msd_state, tx_g.init(scaled[0]),
-                                  tx_d.init(scaled[1])), batches)
+    controls = []
+    for eps in CONTROL_EPS:
+        scaled = jax.tree.map(lambda a: a * np.float32(1 + eps),
+                              (g_wn, d_params))
+        controls.append(_jax_curves(jstep, (*scaled, msd_state,
+                                            tx_g.init(scaled[0]),
+                                            tx_d.init(scaled[1])), batches))
     gen, mpd, msd = _port_modules(g_wn, d_params, msd_state)
     opt_g, opt_d = train.make_optimizers(gen, mpd, msd, 2e-4, 0.999, 10)
     step = train.make_vocoder_train_step(gen, mpd, msd, MEL_CFG, opt_g,
@@ -119,11 +129,20 @@ def test_port_and_jax_trainers_share_a_learning_curve():
         got = step(_torch_batch(batch))
         for k in KEYS:
             port[k].append(float(got[k]))
-    report = {"jax_gate_drop": float(_gate_drop(np.asarray(ref["mel_l1"]))),
-              "port": _summary(port, ref),
-              "control": _summary(control, ref)}
+    jax_drop = float(_gate_drop(np.asarray(ref["mel_l1"])))
+    report = {"jax_gate_drop": jax_drop, "port": _summary(port, ref),
+              "controls": [_summary(c, ref) for c in controls]}
     print("\nvocoder curves", report)
+
+    def first_past(summary):
+        steps = [summary[k]["first_past_bound"] for k in KEYS]
+        return min([n for n in steps if n is not None], default=STEPS + 1)
+
+    assert first_past(report["port"]) \
+        >= min(first_past(c) for c in report["controls"]), report
     for k in KEYS:
-        assert report["port"][k]["max_rel_err"] <= STEP_REL_TOL, (k, report)
-    assert abs(report["port"]["gate_drop"] - report["jax_gate_drop"]) \
-        <= STEP_REL_TOL, report
+        assert report["port"][k]["max_rel_err"] \
+            <= max(c[k]["max_rel_err"] for c in report["controls"]), (k, report)
+    assert abs(report["port"]["gate_drop"] - jax_drop) \
+        <= max(abs(c["gate_drop"] - jax_drop) for c in report["controls"]), \
+        report
