@@ -42,19 +42,16 @@ result line):
    the three V1 stage shapes of a B=8, bucket-512 vocode pass (and one
    unit of each), with a control (plain without its bf16 rounding) that
    must fail the relative-L2 limit, and against exact (float64) sums at
-   one stage-1 tile; check its plan (``plan_mrf``: the tensor-core
-   instance, tile and shared memory) against the built kernel's
-   ``mrf_smem_bytes`` at every V1 and V3 stage, its tensor-core counter
-   on every call at C >= 32, and bit-identical output over two runs; time
-   it (CUDA events, profiler device time) beside the plain version and
-   the same fan as staged cuDNN convs, failing unless the V1 pass is
-   faster than that fan; time the two choices of its design against
-   their alternatives at each V1 stage (one float32 accumulator per conv;
-   weights read straight from L2, whose output must equal the kernel's bit
-   for bit) with their distance from exact sums; check edge shapes (N not
-   a multiple of the
-   tile, N under the halo, v3's ResBlock2 fan, C=16, C=8: the CUDA-core
-   instance); serve 5 text-to-waveform requests through
+   each V1 stage (no further from them than plain); check its plan
+   (``plan_mrf``: the tensor-core instance, tile and shared memory)
+   against the built kernel's ``mrf_smem_bytes`` at every V1 and V3
+   stage, its tensor-core counter on every call at C >= 32, and
+   bit-identical output over two runs; time it (CUDA events, profiler
+   device time) beside the plain version and the same fan as staged
+   cuDNN convs, failing unless the V1 pass is faster than that fan; check
+   edge shapes (N not a multiple of the tile, N under the halo, v3's
+   ResBlock2 fan, C=16, C=8: the CUDA-core instance); serve 5
+   text-to-waveform requests through
    ``run_cached_to_audio`` at flagship width with a seeded V1 generator
    (a cold style, the same keys, a padding row, half new styles, an
    undershooting speculation that re-runs at 2048), with the K1/K5 launch
@@ -318,6 +315,15 @@ times K2's forward and backward wrappers as ``check_k2`` does
 (CUDA-event and device ms), at every ``K2_TIMED`` shape at bf16, rates 0
 and 0.1, on the same seeded inputs in both checkouts, alternating
 parent, this, this, parent twice: one ``AB`` line a run.
+
+    python3 chip_smoke.py --ab-k5 PARENT_DIR
+
+times K5's wrapper at the three V1 stage shapes of a B=8, bucket-512
+vocode pass (CUDA-event and device ms, on the same seeded inputs in both
+checkouts), one replayed audio request at flagship width with a seeded
+V1 generator (host ms of 20, profiled device busy and K5's device ms)
+and one replayed stream window (host ms of 20), alternating parent,
+this, this, parent twice: one ``AB`` line a run.
 
     python3 chip_smoke.py --ab-text PARENT_DIR
 
@@ -1549,7 +1555,7 @@ def k5_bound(B, N, program):
     """Least time for one K5 call: 2 C^2 FLOPs per output sample for each
     tap of the fan at the bf16 peak, against x read and out written once
     in float32, the bf16 taps and the float32 biases once."""
-    taps, C = program.w_taps.shape[0], program.w_taps.shape[1]
+    taps, C = program.w_taps.shape[0], program.biases.shape[1]
     flops = 2.0 * B * N * C * C * taps
     nbytes = 2 * B * N * C * 4 + taps * C * C * 2 + program.biases.numel() * 4
     t_ops = flops / PEAK_FLOPS[torch.bfloat16]
@@ -1562,13 +1568,14 @@ def k5_work_factor(program, C):
     """Products K5 computes per product the fan needs, on paper from the
     tap program and the plan's tile: each conv computes the rows its later
     convs of the chain read (the tile plus what is left of the chain's
-    halo). On the tensor-core instance, the busiest warp's share: a conv's
-    m16 tiles go round-robin to the row groups (plan_mrf's kernel), so a
-    conv costs ceil(tiles / row groups) x row groups x 16 rows."""
-    from daft_exprt_tpu_torch.ops.mrf_vocoder import plan_mrf, tc_row_groups
+    halo). On the tensor-core instance, the busiest warpgroup's share: a
+    conv's rows are whole m64 tiles, split between the two warpgroups at C
+    = 64 and 32 (plan_mrf's kernel), so a conv costs ceil(tiles / split) x
+    split x 64 rows."""
+    from daft_exprt_tpu_torch.ops.mrf_vocoder import plan_mrf, tc_tile_split
 
     plan = plan_mrf(C, program.halo)
-    tn, rg = plan.tile_rows, tc_row_groups(C)
+    tn, rg = plan.tile_rows, tc_tile_split(C)
     done = need = left = 0
     for k, d, _, flags, reach in program.desc.tolist():
         if flags & 1:  # a chain starts: its halo is the chain's reach
@@ -1576,7 +1583,7 @@ def k5_work_factor(program, C):
         left -= (k - 1) * d // 2
         rows = tn + 2 * left
         if plan.instance == "tensor_core":
-            rows = -(-(-(-rows // 16)) // rg) * rg * 16
+            rows = -(-(-(-rows // 64)) // rg) * rg * 64
         done += rows * k
         need += tn * k
     return done / need
@@ -1632,7 +1639,7 @@ def check_k5_plan(generators):
     plan = {}
     for name, gen in generators.items():
         for stage, program in gen.mrf_programs().items():
-            C = program.w_taps.shape[1]
+            C = program.biases.shape[1]
             mirror = plan_mrf(C, program.halo)
             if mirror.instance != "tensor_core":
                 if name == "v1":
@@ -1649,63 +1656,6 @@ def check_k5_plan(generators):
     return plan
 
 
-K5_VARIANTS = ("shipped", "one_accumulator", "weights_from_l2")
-
-
-def k5_variants(program, B, N, rng):
-    """K5's two design choices timed against what they chose, at one V1
-    stage: one float32 accumulator for all of a conv's products (against
-    32-channel chunks summed on the tensor cores and added with a rounded
-    add), and each warp's B fragments read straight from L2 (against the
-    3-stage cp.async ring in shared memory; the same tile and shared
-    memory). Each variant's CUDA-event ms and relative L2 distance from
-    the exact sums (mrf_exact, the first 4,096 samples of one row), beside
-    plain's. The L2 variant computes the same products in the same order as
-    the shipped kernel: its output must equal it bit for bit. Timed only:
-    no path runs the variants."""
-    import ctypes
-
-    from daft_exprt_tpu_torch.ops.mrf_vocoder import mrf_plain, plan_mrf
-
-    fn = _build.load_library("mrf_vocoder_tc").mrf_tc_forward_variant
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    C = program.w_taps.shape[1]
-    plan = plan_mrf(C, program.halo)
-    taps = {"shipped": program.w_taps, "one_accumulator": program.w_taps,
-            "weights_from_l2": program.w_taps.transpose(1, 2).contiguous()}
-
-    def run(variant, inp):
-        out = torch.empty_like(inp)
-        err = fn(inp.data_ptr(), taps[variant].data_ptr(),
-                 program.biases.data_ptr(), program.desc.data_ptr(),
-                 out.data_ptr(), inp.shape[0], inp.shape[1], C,
-                 program.desc.shape[0], program.halo, plan.tile_rows,
-                 plan.smem_bytes, 1.0 / len(program.chains),
-                 K5_VARIANTS.index(variant),
-                 torch.cuda.current_stream().cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"K5 variant {variant}: CUDA error {err}")
-        return out
-
-    x = _cuda((0.5 * rng.standard_normal((B, N, C))).astype(np.float32))
-    xs = x[:1, :4096]
-    exact = mrf_exact(xs, program)
-    row = {"C": C, "B": B, "N": N, "tile_rows": plan.tile_rows,
-           "plain_exact_rel_l2": _rel_l2(mrf_plain(xs, program), exact)}
-    outs = {}
-    for variant in K5_VARIANTS:
-        outs[variant] = run(variant, x)
-        row[variant] = {
-            "ms": cuda_ms(lambda: run(variant, x)),
-            "exact_rel_l2": _rel_l2(run(variant, xs), exact)}
-    print("K5 variants", json.dumps(row), flush=True)
-    if not torch.equal(outs["weights_from_l2"], outs["shipped"]):
-        raise AssertionError(f"K5's L2 variant differs from the kernel: {row}")
-    return row
-
-
 def check_k5():
     """K5 against its plain version at the V1 stage shapes of the serving
     batch (B=8, bucket 512; timed beside the staged cuDNN fan, with the
@@ -1715,8 +1665,10 @@ def check_k5():
     within its K5_REL_TOL of plain while the control (plain without
     rounding) exceeds it, give bit-identical output over two runs, and
     launch the tensor-core instance at C >= 32 (the CUDA-core one at C = 8
-    and 16). The V1 pass (the three timed stages) must be faster than the
-    staged bf16 cuDNN fan."""
+    and 16). At each timed V1 stage the kernel must be no further from the
+    exact sums of its rounded operands (mrf_exact, the first 4,096 samples
+    of one row) than plain is. The V1 pass (the three timed stages) must
+    be faster than the staged bf16 cuDNN fan."""
     from daft_exprt_tpu_torch.ops.mrf_vocoder import (build_mrf_program,
                                                       mrf_plain)
 
@@ -1744,7 +1696,7 @@ def check_k5():
         ("edge_C8", narrow.mrf_programs()[2], 1, 2500, "fan", None)]
     rows = []
     for name, program, B, N, kind, timed in cases:
-        C = program.w_taps.shape[1]
+        C = program.biases.shape[1]
         x = _cuda((0.5 * rng.standard_normal((B, N, C))).astype(np.float32))
         before = fused_mrf.tc_launches
         out = fused_mrf(x, program)
@@ -1769,21 +1721,22 @@ def check_k5():
         if not (bool(torch.isfinite(out).all())
                 and row["rel_l2"] <= limit < row["control_rel_l2"]):
             raise AssertionError(f"K5 disagrees with plain: {row}")
-        if name == "v1_stage1":
-            # kernel and plain sum in float32 in other orders: each should
-            # be as far from the exact sum as the other
+        if timed:
+            # kernel and plain sum in float32 in other orders: the kernel's
+            # partial sums (64 input channels of a tap at C = 128 and 64, a
+            # tap at 32), added with rounded float32 adds, must leave it no
+            # further from the exact sums
             xs = x[:1, :4096]
             exact = mrf_exact(xs, program)
             row["exact_rel_l2"] = {
                 "kernel": _rel_l2(fused_mrf(xs, program), exact),
                 "plain": _rel_l2(mrf_plain(xs, program), exact)}
-            print("K5 vs exact sums", json.dumps(row["exact_rel_l2"]),
-                  flush=True)
+            print(f"K5 {name} vs exact sums",
+                  json.dumps(row["exact_rel_l2"]), flush=True)
             if not row["exact_rel_l2"]["kernel"] \
-                    <= 1.5 * row["exact_rel_l2"]["plain"]:
+                    <= row["exact_rel_l2"]["plain"]:
                 raise AssertionError(f"K5 further from the exact sums than "
                                      f"plain: {row}")
-        if timed:
             staged = staged_fan(*timed)
             row["ms"] = cuda_ms(lambda: fused_mrf(x, program))
             row["device_ms"] = device_ms(lambda: fused_mrf(x, program),
@@ -1803,9 +1756,9 @@ def check_k5():
     if not ms < staged:
         raise AssertionError(f"K5's V1 pass ({ms} ms) is not faster than the "
                              f"staged bf16 cuDNN fan ({staged} ms)")
-    variants = [k5_variants(v1.mrf_programs()[stage], r["B"], r["N"], rng)
-                for stage, r in zip((1, 2, 3), timed)]
-    return rows, plan, variants
+    exact = [{"shape": r["shape"], "C": r["C"], **r["exact_rel_l2"]}
+             for r in timed]
+    return rows, plan, exact
 
 
 def make_request(hp, rng, B, L, T_ref, dur_scale, pitch_transform):
@@ -2010,8 +1963,8 @@ def range_launches(prof, name):
 # only; its instances on the tensor cores
 ON_DEVICE = {"k1": r"(?<!\w)qkv_(tc_)?kernel<",
              "k1_tensor_core": r"(?<!\w)qkv_tc_kernel<",
-             "k5": r"(?<!\w)mrf_(tc_)?kernel<",
-             "k5_tensor_core": r"(?<!\w)mrf_tc_kernel<"}
+             "k5": r"(?<!\w)mrf_(wgmma_)?kernel<",
+             "k5_tensor_core": r"(?<!\w)mrf_wgmma_kernel<"}
 
 
 def kernel_report(prof, wall_ms, groups):
@@ -2146,7 +2099,7 @@ def time_duration_cumsum(hp):
     return report
 
 
-K5_TC_KERNELS = ("mrf_tc_kernel",)
+K5_TC_KERNELS = ("mrf_wgmma_kernel",)
 K5_KERNELS = ("mrf_kernel",) + K5_TC_KERNELS
 # cuDNN's conv and transposed-conv kernels: names vary with the algorithm
 CUDNN_KERNELS = ("xmma", "cudnn", "implicit", "convolve", "dgrad", "fprop",
@@ -3619,7 +3572,7 @@ def graph_launches(launches):
             "launches_on_device_in": "the main path's profiled round"}
 
 
-def k5_entry(rows, plan, design, launches, audio, two_step_err, profile,
+def k5_entry(rows, plan, exact, launches, audio, two_step_err, profile,
              stream, audio_cpu):
     """The ``kernels`` entry of K5: errors over every checked shape (fans
     and single units beside their controls), times summed over the three
@@ -3657,7 +3610,7 @@ def k5_entry(rows, plan, design, launches, audio, two_step_err, profile,
         "staged_cudnn_ms": sum(r["staged_cudnn_ms"] for r in timed),
         "work_factor_by_stage": [r["work_factor"] for r in timed],
         "plan": plan,
-        "design_variants": design,
+        "exact_rel_l2_by_stage": exact,
         "at": "one V1 vocode pass: stages 1-3 (C=128/64/32, N=32768/65536/"
               "131072), B=8, bucket 512, bf16 operands",
         "shapes": [{k: r[k] for k in r if k not in ("taps", "halo")}
@@ -7621,6 +7574,70 @@ for name, B, T, H, lens, width in cs.K2_SHAPES:
                      "bwd_device_ms": cs.device_ms(bwd)})
 print("AB", json.dumps(rows))
 """
+# K5 as the serving path runs it: the wrapper at the three V1 stage shapes
+# of a B=8, bucket-512 vocode pass (inputs 0.5 x a normal draw, seed 8,
+# the same in both checkouts), then one replayed audio request at
+# flagship width (B=8, L=64, reference T=512, bucket 512, the styles
+# cached after the first pass) with a seeded V1 generator, and one
+# replayed stream window
+AB_K5 = """
+import json, time, numpy as np, torch, chip_smoke as cs
+from daft_exprt_tpu_torch.ops.mrf_vocoder import fused_mrf
+from daft_exprt_tpu_torch.vocoder.streaming import StreamingVocoder
+cs._build.build()
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+gen = cs.HiFiGanGenerator(seed=0)
+rng = np.random.default_rng(8)
+rates = gen.cfg["upsample_rates"]
+ab = {}
+for stage in (1, 2, 3):
+    program = gen.mrf_programs()[stage]
+    C = program.biases.shape[1]
+    N = cs.SERVE_BUCKET * int(np.prod(rates[:stage + 1]))
+    x = cs._cuda((0.5 * rng.standard_normal((8, N, C))).astype(np.float32))
+    ab[f"C{C}_ms"] = cs.cuda_ms(lambda: fused_mrf(x, program))
+    ab[f"C{C}_device_ms"] = cs.device_ms(lambda: fused_mrf(x, program), reps=5)
+ab["pass_device_ms"] = sum(ab[f"C{C}_device_ms"] for C in (128, 64, 32))
+hp = cs.flagship_hparams()
+model = cs.DaftExprt(hp, seed=0)
+cs.pin_durations(model)
+engine = cs.InferenceEngine(model, None, hp)
+engine.attach_vocoder(gen)
+rng = np.random.default_rng(11)
+inputs = cs.make_request(hp, rng, 8, 64, 512, 0.25, "add")
+keys = [(f"style_{i}", i) for i in range(8)]
+
+def request():
+    return engine.run_cached_to_audio(inputs, "add", keys)
+
+def timed(run, n=20):
+    for _ in range(3):
+        run()
+    ms = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ms)), min(ms)
+
+ab["audio_request_ms_median"], ab["audio_request_ms_min"] = timed(request)
+prof = cs.profile_kernels(request, {"k5_ms": cs.K5_KERNELS})
+ab["audio_device_busy_ms"] = prof and prof["device_busy_ms"]
+ab["audio_k5_device_ms"] = prof and prof["k5_ms"]
+sv = StreamingVocoder(gen)
+mel = np.random.default_rng(12).standard_normal(
+    (gen.cfg["num_mels"], sv.window)).astype(np.float32) - 5.0
+buffers = sv._buffers()
+
+def window():
+    return sv._dispatch(mel, slice(0, sv.chunk * sv.up), *buffers[0])()
+
+ab["window_ms_median"], ab["window_ms_min"] = timed(window)
+print("AB", json.dumps(ab))
+"""
 # the text-serving phase as a user meets a fresh server: warm-up s, each
 # request's host ms (first of its shape), /stream's first audio, the four
 # concurrent requests' median, and the profiled cached-style sentence
@@ -7847,7 +7864,8 @@ def ab_preview() -> str:
 
 
 AB_SCRIPTS = {"--ab-train": AB_TRAIN, "--ab-k1": AB_K1, "--ab-serve": AB_SERVE,
-              "--ab-k2": AB_K2, "--ab-text": AB_TEXT, "--ab-step": AB_STEP,
+              "--ab-k2": AB_K2, "--ab-k5": AB_K5, "--ab-text": AB_TEXT,
+              "--ab-step": AB_STEP,
               "--ab-synth": AB_SYNTH, "--ab-preview": ab_preview()}
 
 
@@ -7909,7 +7927,9 @@ def ab_train(parent: str, rounds: int = 2, script: str = AB_TRAIN) -> int:
     for), or AB_SERVE one flagship mel request (measure/add, B=8, bucket
     512: median and least host ms of 20, profiled device busy), or AB_K2
     K2's forward and backward wrappers at every timed shape and rate
-    (CUDA-event and device ms), or AB_TEXT the text-serving phase on a
+    (CUDA-event and device ms), or AB_K5 K5's wrapper at the V1 stage
+    shapes (CUDA-event and device ms), a replayed audio request and a
+    replayed stream window (host ms), or AB_TEXT the text-serving phase on a
     fresh server (warm-up s, each request's ms, /stream's first audio),
     in a checkout of another commit against
     this one, each in a process of its own on the same card, in the order
@@ -7997,7 +8017,7 @@ def main(mode: str | None = None, count: int = 0) -> int:
     cpu_err = check_against_cpu()
     cumsum = time_duration_cumsum(flagship_hparams())
     mark("cpu_and_cumsum")
-    k5, k5_plan, k5_design = check_k5()
+    k5, k5_plan, k5_exact = check_k5()
     mark("k5")
     vocoder = HiFiGanGenerator(seed=0)
     audio, k5_launches, audio_engines, audio_requests = serve_audio(
@@ -8151,7 +8171,7 @@ def main(mode: str | None = None, count: int = 0) -> int:
     entries[1]["training_card_vs_cpu_f32"] = train_cpu
     entries[5]["training"] = wide
     entries[5]["training_card_vs_cpu_f32"] = wide_cpu
-    entries.append(k5_entry(k5, k5_plan, k5_design, k5_launches, audio,
+    entries.append(k5_entry(k5, k5_plan, k5_exact, k5_launches, audio,
                             two_step_err, audio_profile, stream, audio_cpu))
     # the text-serving phase's launches (HTTP requests, after warm-up: every
     # pass a replay): at the wrappers, and derived from the replays

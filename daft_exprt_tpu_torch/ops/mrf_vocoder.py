@@ -13,7 +13,8 @@ A CUDA kernel computes the whole fan for one time tile per block, with
 every inter-conv activation in shared memory; :func:`plan_mrf` names its
 instance: at C = 32, 64 and 128 (every V1 stage) the tensor-core one,
 ``csrc/mrf_vocoder_tc.cu`` (each conv a shifted-row GEMM on bf16
-``mma.sync``), at C = 8 and 16 the CUDA-core one, ``csrc/mrf_vocoder.cu``.
+``wgmma``, the taps fed by the TMA unit), at C = 8 and 16 the CUDA-core
+one, ``csrc/mrf_vocoder.cu``.
 See the sources for what bounds them on an H100 and how the designs answer
 it.
 
@@ -42,10 +43,12 @@ KERNEL_CHANNELS = (8, 16, 32, 64, 128)  # the CUDA kernels' instances
 TC_CHANNELS = (32, 64, 128)  # the tensor-core instance's; the rest CUDA-core
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use (H100)
 _SLACK_ROWS = 8  # rows a thread's last row group may read past the region
-# the tensor-core instance (csrc/mrf_vocoder_tc.cu): rows of X (float32)
-# and the bf16 operand padded by 8 elements, a 3-stage ring of 32 input
-# channels of one tap's weights, 8 warps of up to 128 accumulators a lane
-_TC_PAD, _TC_STAGES, _TC_DEPTH = 8, 3, 32
+# the tensor-core instance (csrc/mrf_vocoder_tc.cu): ring stages of 32
+# input channels of one tap (64 C bytes), m64 output tiles a block holds
+# (two warpgroups of 128 float32 sums a thread: at C = 128 each takes half
+# the columns of every tile, at C = 64 and 32 every other tile)
+_TC_STAGES = {128: 5, 64: 8, 32: 8}
+_TC_TILES = {128: 4, 64: 8, 32: 16}
 
 # descriptor flags, as in csrc/mrf_vocoder.cu and csrc/mrf_vocoder_tc.cu
 CHAIN_START, SECOND_CONV, TO_CARRY, CHAIN_END, FIRST_CHAIN = 1, 2, 4, 8, 16
@@ -56,7 +59,10 @@ class MrfProgram(NamedTuple):
 
     ``chains``: per chain, per dilation unit, the unit's convs as
     (weight (C, C, k) float32, bias (C,) float32, dilation). The kernel's
-    copy: ``w_taps`` (n_taps, C_in, C_out) bf16, ``biases`` (n_convs, C)
+    copy: ``w_taps`` bf16, (n_taps, C_in, C_out) for the CUDA-core
+    instance and (n_taps, C_in / 8, C_out, 8) for the tensor-core one (tap
+    t's [g, n, e] = weight[n, 8 g + e, t]: the image of wgmma's K-major B
+    operand in shared memory, see :func:`pack_taps`), ``biases`` (n_convs, C)
     float32, ``desc`` (n_convs, 5) int32 rows (k, dilation, first tap,
     flags, chain halo), all on the generator's device; ``halo`` is the
     widest chain's one-sided reach in samples."""
@@ -93,7 +99,7 @@ def build_mrf_program(chains) -> MrfProgram:
                     | (FIRST_CHAIN if j == 0 else 0)
                 desc.append([w.shape[-1], int(d), len(taps), flags,
                              reaches[j]])
-                taps.extend(w.permute(2, 1, 0).to(torch.bfloat16))
+                taps.extend(pack_taps(w))
                 biases.append(b)
             units.append(tuple(convs))
         packed.append(tuple(units))
@@ -104,6 +110,19 @@ def build_mrf_program(chains) -> MrfProgram:
         biases=torch.stack(biases).contiguous(),
         desc=torch.tensor(desc, dtype=torch.int32, device=device),
         halo=max(reaches))
+
+
+def pack_taps(w):
+    """A conv's weight (C_out, C_in, k) as the kernel reads its taps, in
+    bf16: (k, C_in, C_out) where the CUDA-core instance takes C, else (k,
+    C_in / 8, C_out, 8), 8 input channels of an output channel 16
+    contiguous bytes (the tensor-core instance copies a tap's 32 input
+    channels into shared memory as they lie)."""
+    k, C = w.shape[-1], w.shape[0]
+    w = w.to(torch.bfloat16)
+    if C not in TC_CHANNELS:
+        return w.permute(2, 1, 0)
+    return w.permute(2, 0, 1).reshape(k, C, C // 8, 8).permute(0, 2, 1, 3)
 
 
 # ----------------------------------------------------------------------
@@ -169,10 +188,20 @@ def smem_bytes(C: int, halo: int) -> int:
     return rows * C * 4 + 2 * (rows + _SLACK_ROWS) * C * 2 + tn * C * 4
 
 
-def tc_row_groups(C: int) -> int:
-    """Warps of the tensor-core instance that split a conv's m16 tiles
-    round-robin: 8 warps over C / min(C, 64) column groups."""
-    return 8 // (C // min(C, 64))
+def tc_tile_split(C: int) -> int:
+    """Warpgroups of the tensor-core instance that split a conv's m64
+    tiles between them: 1 at C = 128 (each takes half the columns of
+    every tile), 2 at C = 64 and 32 (each every other tile)."""
+    return 1 if C == 128 else 2
+
+
+def tc_smem_bytes(C: int, rows: int) -> int:
+    """Shared memory of one tensor-core block over ``rows`` rows: the ring,
+    the bf16 operand (C / 8 channel groups of ``rows`` rounded up to 1 mod
+    8 rows, 16 bytes each), the float32 carry and the ring's barriers."""
+    stages = _TC_STAGES[C]
+    group = rows + (1 - rows) % 8
+    return stages * 64 * C + 2 * C * group + 4 * C * rows + 16 * stages
 
 
 class MrfPlan(NamedTuple):
@@ -185,22 +214,20 @@ def plan_mrf(C: int, halo: int) -> MrfPlan:
     """K5's instance at width C for a fan of one-sided reach ``halo``,
     mirroring the kernels (``tile_rows`` and ``mrf_smem_bytes`` of
     ``csrc/mrf_vocoder_tc.cu``): at C in :data:`TC_CHANNELS` the
-    tensor-core instance with the largest tile (a multiple of 16 samples)
-    whose rows, tile plus both halos, fit one block's shared memory (float32
-    carry and bf16 operand, rows padded by 8 elements, beside the weight
-    ring) and its warps' accumulators (8 warps x 16 rows x 128 / (C/2 or
-    16) m16 tiles); at C = 8 or 16 the CUDA-core instance
+    tensor-core instance with the largest tile (a multiple of 64 samples,
+    whole m64 output tiles) whose rows, tile plus both halos, fit one
+    block's shared memory (:func:`tc_smem_bytes`) and its warpgroups' sums
+    (:data:`_TC_TILES` m64 tiles); at C = 8 or 16 the CUDA-core instance
     (:func:`tile_rows`, :func:`smem_bytes`). Raises ValueError where
     neither takes the shape."""
     if C in TC_CHANNELS and halo >= 0:
-        ld = C + _TC_PAD
-        ring = _TC_STAGES * _TC_DEPTH * ld * 2
-        wc = min(C, 64)
-        rows = min((SMEM_LIMIT - ring) // (ld * 6),
-                   tc_row_groups(C) * 16 * (256 // wc))
-        tn = (rows - 2 * halo) // 16 * 16
-        if tn >= 16:
-            return MrfPlan("tensor_core", tn, (tn + 2 * halo) * ld * 6 + ring)
+        rows = 64 * _TC_TILES[C]
+        while rows > 0 and tc_smem_bytes(C, rows) > SMEM_LIMIT:
+            rows -= 1
+        tn = (rows - 2 * halo) // 64 * 64
+        if tn >= 64:
+            return MrfPlan("tensor_core", tn,
+                           tc_smem_bytes(C, tn + 2 * halo))
     elif C in KERNEL_CHANNELS and halo >= 0 \
             and smem_bytes(C, halo) <= SMEM_LIMIT:
         return MrfPlan("cuda_core", tile_rows(C), smem_bytes(C, halo))
@@ -218,8 +245,9 @@ def _check_cuda(x, program):
         raise ValueError(f"fused_mrf: the kernel takes C in {KERNEL_CHANNELS}"
                          f", got {C}")
     n_convs = program.desc.shape[0]
+    taps = (C // 8, C, 8) if C in TC_CHANNELS else (C, C)
     if (program.w_taps.dtype != torch.bfloat16
-            or program.w_taps.shape[1:] != (C, C)
+            or program.w_taps.shape[1:] != taps
             or tuple(program.biases.shape) != (n_convs, C)
             or any(t.device != x.device for t in (
                 program.w_taps, program.biases, program.desc))):

@@ -26,7 +26,9 @@ from daft_exprt_tpu.ops.mrf_vocoder import fused_mrf as jax_fused_mrf
 from daft_exprt_tpu.vocoder import hifigan as jhifigan
 from daft_exprt_tpu.vocoder import streaming as jstreaming
 from daft_exprt_tpu_torch.convert import generator_state_dict_from_jax
-from daft_exprt_tpu_torch.ops.mrf_vocoder import (SMEM_LIMIT,
+from daft_exprt_tpu_torch.ops.mrf_vocoder import (CHAIN_END, CHAIN_START,
+                                                  LRELU_SLOPE, SMEM_LIMIT,
+                                                  TO_CARRY,
                                                   build_mrf_program,
                                                   fused_mrf, mrf_plain,
                                                   plan_mrf)
@@ -133,6 +135,69 @@ def test_mrf_plain_matches_pallas_interpret(rng_np, c, r, two_convs, tile,
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-3)
 
 
+def _mrf_from_kernel_copy(x, program):
+    """K5's function read from the kernel's copy of the program alone, as
+    the kernel walks it: the descriptor rows (k, dilation, first tap,
+    flags, chain reach), the bf16 taps in their packed layout (at C = 32,
+    64 and 128 (n_taps, C_in / 8, C_out, 8)), the biases; a conv is one
+    shifted-row product a tap, zero outside [0, N)."""
+    B, N, C = x.shape
+    w = program.w_taps.float()
+    if w.dim() == 4:
+        w = w.permute(0, 1, 3, 2).reshape(w.shape[0], C, C)
+    out, chains, cur, t = None, 0, None, None
+    for (k, d, tap0, flags, _), bias in zip(program.desc.tolist(),
+                                            program.biases):
+        if flags & CHAIN_START:
+            cur = t = x
+        a = torch.nn.functional.leaky_relu(t, LRELU_SLOPE).to(
+            torch.bfloat16).float()
+        pad = (k - 1) * d // 2
+        a = torch.nn.functional.pad(a, (0, 0, pad, pad))
+        y = bias.float()
+        for i in range(k):
+            y = y + a[:, i * d:i * d + N] @ w[tap0 + i]
+        if flags & TO_CARRY:
+            cur = t = cur + y
+            if flags & CHAIN_END:
+                out = cur if out is None else out + cur
+                chains += 1
+        else:
+            t = y
+    return out * (1.0 / chains)
+
+
+@pytest.mark.parametrize("c,r,two_convs,tile,blocks,kernels,dilations", [
+    (32, 4, True, 16, 64, [3, 7], [[1, 3], [2, 5]]),
+    (128, 1, True, 1024, 64, [3, 7], [[1, 3], [2, 5]]),
+    (64, 2, False, 8, 64, [3, 7], [[1, 3], [2, 5]]),
+    (32, 4, True, 8, 21, [3], [[1, 2]]),
+], ids=["C32_tiled", "C128", "C64_resblock2", "ragged"])
+def test_packed_taps_match_pallas_interpret(rng_np, c, r, two_convs, tile,
+                                            blocks, kernels, dilations):
+    """The tensor-core instance's copy of the program -- taps packed as
+    (n_taps, C_in / 8, C_out, 8), tap t's [g, n, e] = weight[n, 8 g + e,
+    t] -- read back conv by conv as the kernel reads it, against the
+    Pallas kernel in interpret mode at the cases of
+    test_mrf_plain_matches_pallas_interpret."""
+    resblocks = _resblocks(rng_np, c, kernels, dilations, two_convs,
+                           zero_bias=blocks == 21)
+    B, N = 2, blocks * r
+    x = rng_np.standard_normal((B, N, c)).astype(np.float32)
+    want = np.asarray(jax_fused_mrf(
+        jnp.asarray(x.reshape(B, blocks, r * c)),
+        jax_program(resblocks, kernels, dilations, two_convs, r),
+        tile=tile, interpret=True)).reshape(B, N, c)
+    program = _port_program(resblocks, dilations)
+    n_taps = sum(len(dils) * k * (2 if two_convs else 1)
+                 for k, dils in zip(kernels, dilations))
+    assert program.w_taps.shape == (n_taps, c // 8, c, 8)
+    got = _mrf_from_kernel_copy(torch.from_numpy(x), program).numpy()
+    assert got.shape == want.shape
+    assert _rel_l2(got, want) <= REL_TOL
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-3)
+
+
 def test_mrf_program_packs_taps_and_flags(rng_np):
     """The kernel's copy of the program: one descriptor per conv (k,
     dilation, first tap, flags, chain reach), taps (C_in, C_out) in
@@ -186,17 +251,24 @@ def test_plan_mrf_fits_every_stage(cfg):
 
 
 def test_plan_mrf_v1_tiles():
-    """V1's halo of 60 samples: tiles of 128, 384 and 816 samples at C =
-    128, 64 and 32, each the largest multiple of 16 whose rows (tile and
-    both halos) fit the float32 carry, the bf16 operand and the weight
-    ring in shared memory, and the warps' accumulators."""
-    for C, tn, rows_cap in ((128, 128, 256), (64, 384, 512), (32, 816, 1024)):
+    """V1's halo of 60 samples: tiles of 128, 384 and 896 samples at C =
+    128, 64 and 32, each the largest multiple of 64 (whole m64 output
+    tiles) whose rows (tile and both halos) fit the weight ring (5, 8, 8
+    stages of 32 input channels of a tap), the bf16 operand (C / 8 channel
+    groups of the rows rounded up to 1 mod 8), the float32 carry and the
+    ring's barriers in shared memory, and the two warpgroups' sums (4, 8,
+    16 m64 tiles a block)."""
+    for C, tn, stages, tiles in ((128, 128, 5, 4), (64, 384, 8, 8),
+                                 (32, 896, 8, 16)):
+        def smem(rows):
+            group = rows + (1 - rows) % 8
+            return (stages * 64 * C + 2 * C * group + 4 * C * rows
+                    + 16 * stages)
         plan = plan_mrf(C, 60)
-        assert plan == ("tensor_core", tn, (tn + 120) * (C + 8) * 6
-                        + 3 * 32 * (C + 8) * 2)
-        assert tn + 120 <= rows_cap
-        grown = (tn + 16 + 120) * (C + 8) * 6 + 3 * 32 * (C + 8) * 2
-        assert grown > SMEM_LIMIT or tn + 16 + 120 > rows_cap
+        assert plan == ("tensor_core", tn, smem(tn + 120))
+        assert tn + 120 <= 64 * tiles and smem(tn + 120) <= SMEM_LIMIT
+        grown = tn + 64 + 120
+        assert smem(grown) > SMEM_LIMIT or grown > 64 * tiles
 
 
 @pytest.mark.parametrize("C,halo", [(4, 12), (256, 60), (48, 60),
