@@ -21,9 +21,12 @@ result line):
    tensor-core instance; two runs bit-identical; padded rows exactly
    zero); its plan's shared memory against the built kernels' at every
    width; time every bf16 shape (CUDA events, median of 25 after warm-up;
-   profiler device time; the plain version; the CUDA-core instance with
+   profiler device time, summed over the kernels and as the union of
+   their intervals, and by kernel at the flagship serving shapes and the
+   wide frame decoder; the plain version; the CUDA-core instance with
    bf16 rounding; the block staged from library calls), failing unless
    the tensor-core instance beats the CUDA-core one at the frame decoder;
+   time the tensor-core products' partial-sum depths (``k1_sums``);
 3. serve requests through ``collate_inference_batch`` ->
    ``InferenceEngine.run`` at the flagship width (config defaults, 11
    speakers, bf16) with seeded weights, both pitch transforms and both
@@ -303,11 +306,13 @@ tensor-map encoding (where ``train`` reports it) per run.
     python3 chip_smoke.py --ab-k1 PARENT_DIR
     python3 chip_smoke.py --ab-serve PARENT_DIR
 
-do the same for one bf16 frame-decoder FFT block through
-``FFTBlock.forward`` (a (B, 4, 2E) FiLM tensor's slice, as the decoder
-passes it: CUDA-event ms, device ms and their difference, the host time
-the card waits for) and for one flagship mel request (host ms of 20
-requests, profiled device busy).
+do the same for K1's wrapper at every ``K1_SHAPES`` shape at bf16
+(CUDA-event ms, device ms summed by kernel and as the union of the
+kernels' device intervals, on the same seeded inputs in both checkouts),
+one replayed flagship mel request and one replayed audio request (host
+ms of 20, profiled device busy, K1's and K5's device ms), and for one
+flagship mel request alone (host ms of 20 requests, profiled device
+busy).
 
     python3 chip_smoke.py --ab-k2 PARENT_DIR
 
@@ -432,8 +437,9 @@ from daft_exprt_tpu_torch.ops.attention_train import (attention_core,
                                                       tc_map_stats)
 from daft_exprt_tpu_torch.ops.conv_ff_train import (conv_ff_train,
                                                     conv_ff_train_blocked)
-from daft_exprt_tpu_torch.ops.fft_block import (fft_block_plain,
-                                                fused_fft_block)
+from daft_exprt_tpu_torch.ops.fft_block import (KERNEL_MAX_CHANNELS,
+                                                fft_block_plain,
+                                                fused_fft_block, unpacked)
 from daft_exprt_tpu_torch.ops.mrf_vocoder import fused_mrf
 from daft_exprt_tpu_torch.symbols import SYMBOLS_ENGLISH
 from daft_exprt_tpu_torch.training.step import (TRAIN_CAPTURED,
@@ -476,7 +482,10 @@ K1_SHAPES = [("prosody_encoder", 8, 512, E, 8, C, False),
              ("eval_symbols", 16, 128, E, 2, C, True),
              ("eval_frames", 16, 768, E, 2, C, True)]
 # (name, T, E, heads, C, FiLM, lengths): tiles cut by T, a row of length 0
-# (every duration zero), checked but not timed; E=256 is two heads of 128
+# (every duration zero), checked but not timed; E=256 is two heads of 128.
+# The last two have a hidden past what a cluster of 8 holds (the
+# tensor-core instance's conv launch runs in two chunks) and past the
+# CUDA-core instance's conv tile: bf16 only, with no control.
 K1_EDGE_CASES = [("edge_T48", 48, E, 2, C, True, [48, 17, 0]),
                  ("edge_T16_H8", 16, E, 8, C, False, [16, 5]),
                  ("edge_T1536", 1536, E, 2, C, True, [1536, 700]),
@@ -485,7 +494,10 @@ K1_EDGE_CASES = [("edge_T48", 48, E, 2, C, True, [48, 17, 0]),
                  ("edge_E512_T48", 48, WIDE_E, WIDE_H, WIDE_C, True,
                   [48, 17, 0]),
                  ("edge_E512_T300", 300, WIDE_E, WIDE_H, WIDE_C, False,
-                  [300, 129])]
+                  [300, 129]),
+                 ("edge_C4224_chunks", 48, E, 8, 4224, True, [48, 17, 0]),
+                 ("edge_E512_C6272_chunks", 130, WIDE_E, WIDE_H, 6272, False,
+                  [130, 61])]
 # K1 kernel vs plain at bf16, relative L2 of the whole output. Both round
 # at the same points; float32 sums in another order flip a bf16 rounding
 # by one ulp only now and then, while the control (the CUDA-core instance
@@ -496,6 +508,10 @@ K1_EDGE_CASES = [("edge_T48", 48, E, 2, C, True, [48, 17, 0]),
 # (E=512, where plain itself is ~4e-4 from exact sums, k1_exact) and
 # 1.22e-3 (E=128).
 K1_REL_TOL = 7e-4
+# the shapes whose K1 device time is printed by kernel: the three flagship
+# serving shapes and the wide frame decoder
+K1_BREAKDOWN = ("prosody_encoder", "phoneme_encoder", "frame_decoder",
+                "wide_frame_decoder")
 # the shapes at which kernel and plain are each held to exact sums (the
 # largest of each width, where the distances are steady)
 K1_EXACT_SHAPES = ("frame_decoder", "wide_frame_decoder", "wide_eval_frames")
@@ -569,6 +585,56 @@ def device_ms(fn, reps=10, breakdown=False):
     return (None, None) if breakdown else None
 
 
+def device_union_ms(fn, reps=10):
+    """Device milliseconds of one call of ``fn``: the union of its kernels'
+    device intervals under the profiler (``reps`` calls after one warm-up),
+    where ``device_ms`` sums their durations; kernels that overlap (a
+    launch that starts before the one it depends on has ended) count once.
+    None where the profiler records no device time."""
+    fn()
+    prof, _ = profiled(lambda: [fn() for _ in range(reps)])
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy, end = busy + b - a, b
+        elif b > end:
+            busy, end = busy + b - end, b
+    return busy / 1e3 / reps if spans else None
+
+
+def k1_cluster(B, T, E_, C_, H):
+    """Launch 3's cluster size of K1's tensor-core instance for a call."""
+    import ctypes
+    fn = _build.load_library("fft_block_tc").fft_block_tc_cluster_size
+    fn.argtypes, fn.restype = [ctypes.c_int] * 5, ctypes.c_int
+    return fn(B, T, E_, C_, H)
+
+
+def graph_edges(cache, kind):
+    """(edges, programmatic edges) of the first captured graph of ``cache``
+    whose key starts with ``kind`` (``fft_block_tc_graph_edges``), or None
+    where torch gives no handle to the captured graph."""
+    import ctypes
+    for (key, _), entry in cache.entries.items():
+        if key[0] != kind or entry.graph is None:
+            continue
+        raw = getattr(entry.graph, "raw_cuda_graph", None)
+        if raw is None:
+            return None
+        fn = _build.load_library("fft_block_tc").fft_block_tc_graph_edges
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        out = (ctypes.c_longlong * 2)()
+        err = fn(raw(), ctypes.addressof(out))
+        if err != 0:
+            raise RuntimeError(f"graph edges: CUDA error {err}")
+        return int(out[0]), int(out[1])
+    return None
+
+
 def k1_bound(lengths, B, T, dot_dtype, E=E, C=C):
     """Least time for one K1 call on these inputs: the larger of its
     FLOPs at the card's peak for the dot type (rows past a length need
@@ -636,7 +702,9 @@ def k1_exact(x, w, film, lengths, H):
     def rnd(t):
         return t.to(torch.bfloat16).double()
 
-    w = w._replace(**{n: getattr(w, n).double() for n in w._fields})
+    w = unpacked(w)
+    w = w._replace(**{n: getattr(w, n).double() for n in w._fields
+                      if n != "images"})
     x = x.double()
     B, T, E_ = x.shape
     D = E_ // H
@@ -665,24 +733,30 @@ def k1_exact(x, w, film, lengths, H):
     return torch.where(valid[..., None], y, 0.0)
 
 
-K1_VARIANTS = ("shipped", "chained_sums")
+# the depths of the tensor-core products' partial sums (k-columns a
+# partial, added in float32; 0: every product of a sum chained inside the
+# tensor cores); the instance's is 64
+K1_SUMS = (64, 32, 16, 0)
 
 
-def k1_variants(gen, rng):
-    """K1's rounded sums timed against what they chose, at the frame
-    decoder's shape at both widths: each k16 term added by a rounded
-    float32 add (shipped) against the products' sums chained inside
-    mma.sync over the whole K. Each variant's CUDA-event and device ms and
-    relative L2 distance from the exact sums (k1_exact), beside plain's.
-    Timed only: no path runs the chained variant."""
+def k1_sums(gen, rng):
+    """K1's partial sums timed against the other depths they could take,
+    at the frame decoder's shape at both widths (every product of the
+    three launches; the shipped library's k64, ``fft_block_tc_sums``'s
+    others): each depth's CUDA-event and device ms and relative L2
+    distance from the exact sums (k1_exact), beside plain's. Timed only:
+    no path runs another depth than 64."""
     import ctypes
 
-    from daft_exprt_tpu_torch.ops.fft_block import _tc_workspace_bytes
+    from daft_exprt_tpu_torch.ops.fft_block import (_TC_ARGTYPES,
+                                                    _tc_kernels,
+                                                    _tc_workspace_bytes,
+                                                    tc_kernel_weights)
 
-    fn = _build.load_library("fft_block_tc").fft_block_tc_forward_variant
-    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] + \
-        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    sums = _build.load_library("fft_block_tc_sums").fft_block_tc_forward_sums
+    sums.argtypes = _TC_ARGTYPES[:-1] + [ctypes.c_int, ctypes.c_void_p]
+    sums.restype = ctypes.c_int
+    shipped = _tc_kernels()[1]
     rows = []
     for name, B, T, E_, H, C_ in (("frame_decoder", 8, 512, E, 2, C),
                                   ("wide_frame_decoder", 8, 512, WIDE_E,
@@ -701,15 +775,16 @@ def k1_variants(gen, rng):
         ws = torch.empty(_tc_workspace_bytes(B, T, E_, C_, H),
                          dtype=torch.uint8, device="cuda")
 
-        def run(variant):
+        def run(sum_k):
             out = torch.empty_like(x)
-            err = fn(x.data_ptr(), lengths.data_ptr(), *(
-                getattr(w, n).data_ptr() for n in w._fields), film.data_ptr(),
-                film.stride(0), ws.data_ptr(), out.data_ptr(), B, T, E_, C_, H,
-                int(variant == "shipped"),
-                torch.cuda.current_stream().cuda_stream)
+            args = (x.data_ptr(), lengths.data_ptr(), *tc_kernel_weights(w),
+                    film.data_ptr(), film.stride(0), ws.data_ptr(),
+                    out.data_ptr(), B, T, E_, C_, H)
+            stream = torch.cuda.current_stream().cuda_stream
+            err = shipped(*args, stream) if sum_k == 64 \
+                else sums(*args, sum_k, stream)
             if err != 0:
-                raise RuntimeError(f"K1 variant {variant}: CUDA error {err}")
+                raise RuntimeError(f"K1 sums {sum_k}: CUDA error {err}")
             return out
 
         exact = k1_exact(x, w, film, lengths, H)
@@ -717,13 +792,13 @@ def k1_variants(gen, rng):
                                 dot_dtype=torch.bfloat16)
         row = {"shape": name, "B": B, "T": T, "E": E_, "C": C_,
                "plain_exact_rel_l2": _rel_l2(plain, exact)}
-        for variant in K1_VARIANTS:
-            row[variant] = {
-                "ms": cuda_ms(lambda: run(variant)),
-                "device_ms": device_ms(lambda: run(variant)),
-                "exact_rel_l2": _rel_l2(run(variant), exact),
-                "plain_rel_l2": _rel_l2(run(variant), plain)}
-        print("K1 variants", json.dumps(row), flush=True)
+        for sum_k in K1_SUMS:
+            row[f"k{sum_k}" if sum_k else "chained"] = {
+                "ms": cuda_ms(lambda: run(sum_k)),
+                "device_ms": device_ms(lambda: run(sum_k)),
+                "exact_rel_l2": _rel_l2(run(sum_k), exact),
+                "plain_rel_l2": _rel_l2(run(sum_k), plain)}
+        print("K1 sums", json.dumps(row), flush=True)
         rows.append(row)
     return rows
 
@@ -739,6 +814,8 @@ def check_k1_plan(cases):
     for E_, H, C_ in sorted({(c[3], c[4], c[5]) for c in cases}):
         for dtype, instance in ((torch.bfloat16, "tensor_core"),
                                 (torch.float32, "cuda_core")):
+            if instance == "cuda_core" and C_ > KERNEL_MAX_CHANNELS:
+                continue  # past its conv tile: no CUDA-core instance
             mirror = plan_fft_block(768, E_, H, C_, dtype)
             built = kernel_smem_bytes(E_, H, C_, instance)
             if mirror.instance != instance or mirror.smem_bytes != built:
@@ -789,16 +866,19 @@ def check_k1(gen):
                  0.1 * rng.standard_normal((B, E_))], 1).astype(np.float32))
         lengths = _cuda(lens.astype(np.int32))
         valid = torch.arange(T, device="cuda")[None, :] < lengths[:, None]
-        for dot_dtype in (torch.float32, torch.bfloat16):
+        has_cuda_core = C_ <= KERNEL_MAX_CHANNELS
+        for dot_dtype in ((torch.float32, torch.bfloat16) if has_cuda_core
+                          else (torch.bfloat16,)):
             bf16 = dot_dtype == torch.bfloat16
             w = block.kernel_weights(dot_dtype)
+            wp = unpacked(w)  # plain's (K, N) dot weights, made once
 
             def kernel():
                 return fused_fft_block(x, w, film, lengths, num_heads=H,
                                        dot_dtype=dot_dtype)
 
             def plain():
-                return fft_block_plain(x, w, film, lengths, num_heads=H,
+                return fft_block_plain(x, wp, film, lengths, num_heads=H,
                                        dot_dtype=dot_dtype)
 
             tc_before = fused_fft_block.tc_launches
@@ -824,7 +904,11 @@ def check_k1(gen):
                 bad.append("two runs differ")
             if tc != (2 if bf16 else 0):
                 bad.append(f"{tc} of 2 launches on the tensor-core instance")
-            if bf16:
+            if bf16 and not has_cuda_core:
+                row.update(rel_l2=_rel_l2(out, ref), rel_l2_limit=K1_REL_TOL)
+                if not row["rel_l2"] <= K1_REL_TOL:
+                    bad.append("relative L2")
+            elif bf16:
                 w32 = as_float32(w)
                 control = fft_block_cuda(x, w32, film, lengths, num_heads=H,
                                          dot_dtype=torch.float32)
@@ -850,7 +934,15 @@ def check_k1(gen):
 
                 staged = staged_block(block, H)
                 row["ms"] = cuda_ms(kernel)
-                row["device_ms"] = device_ms(kernel)
+                if name in K1_BREAKDOWN:
+                    row["device_ms"], row["kernels"] = device_ms(
+                        kernel, breakdown=True)
+                else:
+                    row["device_ms"] = device_ms(kernel)
+                # launches chained by programmatic dependent launch overlap:
+                # the union of their device intervals, beside their sum
+                row["device_union_ms"] = device_union_ms(kernel)
+                row["cluster"] = k1_cluster(B, T, E_, C_, H)
                 row["host_ms"] = None if row["device_ms"] is None \
                     else row["ms"] - row["device_ms"]
                 row["plain_ms"] = cuda_ms(plain, reps=5)
@@ -1904,8 +1996,7 @@ def fft_blocks(hp):
 
 
 # K1's kernels by instance (csrc/fft_block_tc.cu, csrc/fft_block.cu)
-K1_TC_KERNELS = ("qkv_tc_kernel", "attn_tc_kernel", "outproj_tc_kernel",
-                 "ln1_rows_kernel", "conv_tc_kernel", "ln2_rows_kernel")
+K1_TC_KERNELS = ("qkv_wgmma_kernel", "attn_wgmma_kernel", "conv_wgmma_kernel")
 K1_KERNELS = ("qkv_kernel", "attention_kernel", "outproj_ln_kernel",
               "conv_ff_kernel") + K1_TC_KERNELS
 K1_GROUPS = {"k1_ms": K1_KERNELS, "k1_tensor_core_ms": K1_TC_KERNELS}
@@ -1961,8 +2052,8 @@ def range_launches(prof, name):
 
 # the kernel that each wrapper call launches once: K1's first (qkv), K5's
 # only; its instances on the tensor cores
-ON_DEVICE = {"k1": r"(?<!\w)qkv_(tc_)?kernel<",
-             "k1_tensor_core": r"(?<!\w)qkv_tc_kernel<",
+ON_DEVICE = {"k1": r"(?<!\w)qkv_(wgmma_)?kernel<",
+             "k1_tensor_core": r"(?<!\w)qkv_wgmma_kernel<",
              "k5": r"(?<!\w)mrf_(wgmma_)?kernel<",
              "k5_tensor_core": r"(?<!\w)mrf_wgmma_kernel<"}
 
@@ -2685,6 +2776,19 @@ def engine_graphs(vocoder, smi):
                 or row["captures"] != row["graphs"]:
             raise AssertionError(f"graph mel request: {row}")
         row["replay_profile"] = prof
+        # K1's launches depend programmatically inside the graph: an
+        # edge from each block's QKV to its attention and from that to its
+        # conv launch, 2 a block at least
+        edges = graph_edges(engine.graphs, "fused")
+        row["edges"], row["programmatic_edges"] = edges or (None, None)
+        print("graph mel edges", json.dumps(
+            {"policy": policy, "edges": row["edges"],
+             "programmatic_edges": row["programmatic_edges"],
+             "k1_blocks": n_blocks}), flush=True)
+        if edges is not None and edges[1] < 2 * n_blocks:
+            raise AssertionError(f"graph mel request: {edges[1]} "
+                                 f"programmatic edges, fewer than 2 x "
+                                 f"{n_blocks} K1 blocks: {row}")
         mel[policy] = (engine, inputs, other, pt, row)
     engine, inputs, _, pt, row = mel["speculate"]
     timed = alternating_ms({
@@ -7489,28 +7593,112 @@ print("AB", json.dumps(ab))
 """
 
 
+# K1's wrapper at every K1_SHAPES shape (bf16; CUDA-event ms, device ms
+# summed by kernel and as the union of the kernels' intervals), one
+# replayed flagship mel request (host ms of 20, profiled device busy and
+# K1's device ms) and one replayed audio request (the same, with K5's);
+# written with only what the parent's chip_smoke.py has
 AB_K1 = """
-import json, numpy as np, torch, chip_smoke as cs
-from daft_exprt_tpu_torch.models.modules import FFTBlock, init_parameters
-cs._build.build([n for n in ("fft_block", "fft_block_tc")
+import json, time, numpy as np, torch, chip_smoke as cs
+from daft_exprt_tpu_torch.ops.fft_block import fused_fft_block
+cs._build.build([n for n in ("fft_block", "fft_block_tc", "mrf_vocoder",
+                             "mrf_vocoder_tc")
                  if (cs._build.SRC_DIR / (n + ".cu")).exists()])
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+ab = {}
+
+
+def union_ms(fn, reps=10):
+    fn()
+    prof, _ = cs.profiled(lambda: [fn() for _ in range(reps)])
+    spans = sorted((e.time_range.start, e.time_range.end) for e in
+                   prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy, end = busy + b - a, b
+        elif b > end:
+            busy, end = busy + b - end, b
+    return busy / 1e3 / reps if spans else None
+
+
+gen = torch.Generator().manual_seed(0)
 rng = np.random.default_rng(0)
-block = FFTBlock(128, 2, 1024, 3)
-init_parameters(block, torch.Generator().manual_seed(0))
-block = block.cuda()
-B, T = 8, 512
-x = torch.from_numpy(rng.standard_normal((B, T, 128)).astype(np.float32)).cuda()
-films = torch.from_numpy(np.concatenate(
-    [1 + 0.1 * rng.standard_normal((B, 4, 128)),
-     0.1 * rng.standard_normal((B, 4, 128))], 2).astype(np.float32)).cuda()
-lens = rng.integers(T // 4, T, size=B)
-lens[0] = T
-lengths = torch.from_numpy(lens.astype(np.int32)).cuda()
-with torch.no_grad():
+for name, B, T, E_, H, C_, with_film in cs.K1_SHAPES:
+    lens = rng.integers(T // 4, T, size=B)
+    lens[0], lens[-1] = T, 3
+    block = cs.FFTBlock(E_, H, C_, 3)
+    cs.init_parameters(block, gen)
+    block = block.cuda()
+    x = cs._cuda(rng.standard_normal((B, T, E_)).astype(np.float32))
+    film = None
+    if with_film:
+        film = cs._cuda(np.concatenate(
+            [1 + 0.1 * rng.standard_normal((B, E_)),
+             0.1 * rng.standard_normal((B, E_))], 1).astype(np.float32))
+    lengths = cs._cuda(lens.astype(np.int32))
+    w = block.kernel_weights(torch.bfloat16)
+
     def call():
-        return block(x, films[:, 1, :], lengths, torch.bfloat16)
-    ms, dev = cs.cuda_ms(call), cs.device_ms(call)
-print("AB", json.dumps({"ms": ms, "device_ms": dev, "host_ms": ms - dev}))
+        return fused_fft_block(x, w, film, lengths, num_heads=H,
+                               dot_dtype=torch.bfloat16)
+
+    ab[name + "_ms"] = cs.cuda_ms(call)
+    ab[name + "_device_ms"] = cs.device_ms(call)
+    ab[name + "_device_union_ms"] = union_ms(call)
+# None where the profiler missed a window (device_ms takes one again once)
+parts = [ab[n + "_device_ms"] for n in ("prosody_encoder", "phoneme_encoder",
+                                         "frame_decoder")]
+ab["mel_pass_k1_device_ms"] = None if None in parts else 4 * sum(parts)
+
+
+def timed(run, n=20):
+    for _ in range(3):
+        run()
+    ms = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ms)), min(ms)
+
+
+hp = cs.flagship_hparams()
+model = cs.DaftExprt(hp, seed=0)
+cs.pin_durations(model)
+engine = cs.InferenceEngine(model, None, hp, bucket_policy="measure")
+inputs = cs.make_request(hp, np.random.default_rng(1), 8, 64, 512, 0.6, "add")
+
+
+def mel():
+    return engine.run(inputs, "add", want_weights=False)
+
+
+ab["mel_request_ms_median"], ab["mel_request_ms_min"] = timed(mel)
+prof = cs.profile_kernels(mel, cs.K1_GROUPS)
+ab["mel_device_busy_ms"] = prof and prof["device_busy_ms"]
+ab["mel_k1_device_ms"] = prof and prof["k1_ms"]
+engine.attach_vocoder(cs.HiFiGanGenerator(seed=0))
+inputs = cs.make_request(hp, np.random.default_rng(11), 8, 64, 512, 0.25,
+                         "add")
+keys = [(f"style_{i}", i) for i in range(8)]
+
+
+def audio():
+    return engine.run_cached_to_audio(inputs, "add", keys)
+
+
+ab["audio_request_ms_median"], ab["audio_request_ms_min"] = timed(audio)
+prof = cs.profile_kernels(audio, {"k1_ms": cs.K1_GROUPS["k1_ms"],
+                                  "k5_ms": cs.K5_KERNELS})
+ab["audio_device_busy_ms"] = prof and prof["device_busy_ms"]
+ab["audio_k1_device_ms"] = prof and prof["k1_ms"]
+ab["audio_k5_device_ms"] = prof and prof["k5_ms"]
+print("AB", json.dumps(ab))
 """
 AB_SERVE = """
 import json, time, numpy as np, torch, chip_smoke as cs
@@ -7921,10 +8109,10 @@ def repeat_checks(processes: int, runs: int = 2) -> int:
 
 def ab_train(parent: str, rounds: int = 2, script: str = AB_TRAIN) -> int:
     """The flagship and the wide training step (3 warm-up and 10 timed
-    steps of ``train`` each, then one profiled), or with ``script`` AB_K1 one bf16
-    frame-decoder FFT block through ``FFTBlock.forward`` (CUDA-event ms,
-    profiler device ms and their difference, the host time the card waits
-    for), or AB_SERVE one flagship mel request (measure/add, B=8, bucket
+    steps of ``train`` each, then one profiled), or with ``script`` AB_K1
+    K1's wrapper at every ``K1_SHAPES`` shape (CUDA-event and device ms)
+    and a replayed mel and audio request (host ms, device busy, K1's and
+    K5's device ms), or AB_SERVE one flagship mel request (measure/add, B=8, bucket
     512: median and least host ms of 20, profiled device busy), or AB_K2
     K2's forward and backward wrappers at every timed shape and rate
     (CUDA-event and device ms), or AB_K5 K5's wrapper at the V1 stage
@@ -8008,7 +8196,7 @@ def main(mode: str | None = None, count: int = 0) -> int:
 
     gen = torch.Generator().manual_seed(0)
     k1, k1_plan = check_k1(gen)
-    k1_design = k1_variants(gen, np.random.default_rng(14))
+    k1_design = k1_sums(gen, np.random.default_rng(14))
     mark("k1")
     rows, launches, engines, requests = serve(flagship_hparams())
     name, pt, inputs = requests[2]  # measure, bucket 512
@@ -8102,11 +8290,12 @@ def main(mode: str | None = None, count: int = 0) -> int:
         "shapes": [{k: r.get(k) for k in (
             "shape", "B", "T", "E", "H", "C", "dtype", "instance",
             "max_abs_err", "rel_l2", "control_rel_l2", "ms", "device_ms",
-            "host_ms", "plain_ms", "cuda_core_ms", "cuda_core_device_ms",
-            "staged_ms", "staged_device_ms", "bound_ms", "bound_by")}
+            "device_union_ms", "host_ms", "plain_ms", "cuda_core_ms",
+            "cuda_core_device_ms", "staged_ms", "staged_device_ms",
+            "bound_ms", "bound_by", "cluster", "kernels")}
             for r in k1 if "ms" in r],
         "smem_bytes": k1_plan,
-        "design_variants": k1_design,
+        "sums": k1_design,
         "serving": rows,
         "audio_launches": {"all": k5_launches["k1"],
                            "tensor_core": k5_launches["k1_tensor_core"],

@@ -161,11 +161,6 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // Two values as bf16 (hi) and their remainders as bf16 (lo).
 __device__ __forceinline__ void split(float a, float b, uint32_t* hi, uint32_t* lo) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
@@ -173,11 +168,6 @@ __device__ __forceinline__ void split(float a, float b, uint32_t* hi, uint32_t* 
   *hi = *reinterpret_cast<const uint32_t*>(&h);
   *lo = pack(a - hf.x, b - hf.y);
 }
-
-// Accumulator column (within the 64 of an n64 tile) of element i of thread
-// t, and its row (0: g, 1: g + 8).
-__device__ __forceinline__ int acc_col(int i, int t) { return 8 * (i >> 2) + 2 * t + (i & 1); }
-__host__ __device__ constexpr int acc_row(int i) { return (i >> 1) & 1; }
 
 // A 64 x D f32 accumulator's rows 16 w + g, + 8 (from r0) to (T, E) device
 // memory at head h; rows at or past T skipped. f32 as float2, bf16 as

@@ -1,8 +1,6 @@
 // Shifted-row GEMM cores on bf16 tensor cores for the k=3 SAME
 // convolutions of the training conv feed-forward (K3 and the C-blocked K4,
-// both in conv_ff_blocked_tc.cu) and of the inference FFT block (K1,
-// fft_block_tc.cu, whose projections also run on the ring); the ring also
-// carries K5's weights in mrf_vocoder_tc.cu.
+// both in conv_ff_blocked_tc.cu).
 //
 // A k=3 SAME conv over the rows of one batch row is a GEMM with K = 3 K_in:
 // output row t takes operand rows t - 1, t and t + 1 (taps d = 0, 1, 2),

@@ -1,8 +1,6 @@
-// bf16 tensor-core building blocks for sm_90a, shared by the inference FFT
-// block (K1, through attention_tc.cuh and conv_ff_tc.cuh) and the
-// conv-FF and vocoder kernels (K3-K5, through conv_ff_tc.cuh): cp.async
-// copies into shared memory, ldmatrix operand loads and mma.sync m16n8k16
-// bf16 -> f32.
+// bf16 tensor-core building blocks for sm_90a, used by the training
+// conv-FF kernels (K3 and K4, through conv_ff_tc.cuh): cp.async copies into
+// shared memory, ldmatrix operand loads and mma.sync m16n8k16 bf16 -> f32.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16): lane = 4 g + t holds the
 // accumulator's rows g and g + 8 at columns 2t, 2t + 1; the A operand the

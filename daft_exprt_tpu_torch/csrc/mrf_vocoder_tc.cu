@@ -151,11 +151,6 @@ int smem_bytes(int H) {
 // instructions
 __device__ __forceinline__ float leaky(float v) { return fmaxf(v, v * SLOPE); }
 
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // Word of the carry X at row r, column c (C floats a row; the 8-float
 // groups XOR-swizzled by r mod 4).
 template <int C>

@@ -10,7 +10,8 @@ Port of the Pallas TPU kernel ``daft_exprt_tpu/ops/fft_block.py:_kernel``
 computed per batch row with its valid length. Two instances, named by
 :func:`plan_fft_block`: bf16 dots at C % 128 == 0 (the serving and
 evaluation path) take the tensor-core instance (``csrc/fft_block_tc.cu``:
-six or seven launches on ``mma.sync``), float32 dots the CUDA-core one
+three launches on ``wgmma``, the weights streamed from images made once a
+weight version, :func:`pack_images`), float32 dots the CUDA-core one
 (``csrc/fft_block.cu``: four launches, the (T, C) conv hidden in shared
 memory); both take E = 128, 256, 512 with head dims 16, 64, 128. See the
 sources for what bounds each on an H100 and how the design answers it.
@@ -51,31 +52,44 @@ _CC_ROWS = 32
 _CC_WEIGHT_SLICE = 3 * 16 * 128
 KERNEL_MAX_CHANNELS = (SMEM_BYTES // 4 - (_CC_ROWS + 4) * 128
                        - _CC_WEIGHT_SLICE) // (_CC_ROWS + 2) // 16 * 16
-# The tensor-core instance's shared memory (csrc/fft_block_tc.cu): 128 x
-# 128 GEMM tiles, a 3-stage ring of 32-deep bf16 chunks, rows padded by 8
-# elements (the convs' operand chunks carry a halo row on each side); the
-# E=128 out-projection stages a 128 x (128 + 4) float32 tile; attention
-# double-buffers 64-row K and V tiles of one head.
-_TC_TILE, _TC_STAGES, _TC_PAD, _TC_DEPTH, _TC_ATTN_ROWS = 128, 3, 8, 32, 64
+# The tensor-core instance's shared memory (csrc/fft_block_tc.cuh), which
+# the plan mirrors: rings of 8 KB weight blocks (64 x 64 bf16), each as
+# deep as the rest leaves (launches 1 and 3 up to 24 stages, at least 8 in
+# launch 3; launch 2 up to 12 a warpgroup), 8 bytes of mbarrier a
+# barrier. Launch 1 holds two 64-row tiles of rnd(x); launch 2 ctx (64 x E
+# bf16), a Q tile a warpgroup, LN1's row sums (a warpgroup's and the
+# block's) and its rings of K or V tiles (16 KB at D=128, else 8 KB);
+# launch 3 conv1's operand (64 mt + 2 rows for its mt m64 tiles, rounded
+# up to 1 KB) and its block's share of the hidden, or the float32 pre-LN
+# tile over both. C is split over a cluster of up to 8 blocks where one
+# block's share does not fit, and launch 3 runs in equal chunks of the
+# hidden where a cluster of 8 does not hold it.
+_TC_BLOCK, _TC_ROWS, _TC_CLUSTER = 8192, 64, 8
+_TC_RING_MAX = _TC_CONV_RING_MAX = 24
 
 
 class FFTBlockWeights(NamedTuple):
     """One block's weights in the kernels' layout ("in x out" matrices,
     conv taps first). The dot weights are rounded to the dot dtype and
     stored in bfloat16 where the tensor-core instance takes them
-    (:func:`bf16_weights`), else in float32; the vectors are float32."""
-    wqkv: torch.Tensor   # (E, 3E) columns [q | k | v]
+    (:func:`bf16_weights`), else in float32; the vectors are float32.
+    Where the tensor-core instance takes the block, ``images`` holds the
+    bf16 dot weights as it streams them (:func:`pack_images`) and the four
+    dot-weight fields are None (:func:`unpacked` rebuilds them); elsewhere
+    ``images`` is None."""
+    wqkv: torch.Tensor | None  # (E, 3E) columns [q | k | v]
     bqkv: torch.Tensor   # (3E,)
-    wo: torch.Tensor     # (E, E)
+    wo: torch.Tensor | None    # (E, E)
     bo: torch.Tensor     # (E,)
     ln1_s: torch.Tensor  # (E,)
     ln1_b: torch.Tensor  # (E,)
-    w1: torch.Tensor     # (3, E, C)
+    w1: torch.Tensor | None    # (3, E, C)
     b1: torch.Tensor     # (C,)
-    w2: torch.Tensor     # (3, C, E)
+    w2: torch.Tensor | None    # (3, C, E)
     b2: torch.Tensor     # (E,)
     ln2_s: torch.Tensor  # (E,)
     ln2_b: torch.Tensor  # (E,)
+    images: torch.Tensor | None = None  # (4 E^2 + 6 E C,) bf16
 
 
 _DOT_WEIGHTS = ("wqkv", "wo", "w1", "w2")
@@ -85,6 +99,39 @@ def bf16_weights(c: int, dot_dtype) -> bool:
     """Whether the dot weights of a block with C conv channels are kept in
     bfloat16 (the tensor-core instance's operands) at ``dot_dtype``."""
     return dot_dtype == torch.bfloat16 and c % TC_CHANNEL_MULTIPLE == 0
+
+
+def _image(w):
+    """A (K, N) matrix as the tensor-core instance's weight image: the
+    64 x 64 blocks of each 64-column slice in K order, each block [8][64][8]
+    (8 K rows of a column 16 bytes apart: the no-swizzle K-major layout of a
+    wgmma B operand), flat."""
+    k, n = w.shape
+    return w.reshape(k // 64, 8, 8, n // 64, 64).permute(3, 0, 1, 4, 2) \
+        .reshape(-1)
+
+
+def _from_image(img, k, n):
+    return img.reshape(n // 64, k // 64, 8, 64, 8).permute(1, 2, 4, 0, 3) \
+        .reshape(k, n)
+
+
+def pack_images(wqkv, wo, w1, w2):
+    """The bf16 dot weights (:class:`FFTBlockWeights` layout) as one flat
+    bf16 tensor of weight images, in launch order: Wqkv (E, 3E), Wo (E, E),
+    W1 as (3E, C) and W2 as (3C, E), rows tap-major."""
+    e, c = w1.shape[1], w1.shape[2]
+    return torch.cat([_image(wqkv), _image(wo), _image(w1.reshape(3 * e, c)),
+                      _image(w2.reshape(3 * c, e))]).contiguous()
+
+
+def unpack_images(images, e: int, c: int):
+    """(wqkv, wo, w1, w2) back from :func:`pack_images`."""
+    sizes = (3 * e * e, e * e, 3 * e * c, 3 * c * e)
+    wqkv, wo, w1, w2 = torch.split(images, sizes)
+    return (_from_image(wqkv, e, 3 * e), _from_image(wo, e, e),
+            _from_image(w1, 3 * e, c).reshape(3, e, c),
+            _from_image(w2, 3 * c, e).reshape(3, c, e))
 
 
 def pack_weights(in_proj_weight, in_proj_bias, out_proj_weight,
@@ -109,18 +156,33 @@ def pack_weights(in_proj_weight, in_proj_bias, out_proj_weight,
     def vec(v):
         return v.detach().float().contiguous()
 
-    return FFTBlockWeights(
+    w = FFTBlockWeights(
         wqkv=dot_w(in_proj_weight.t()), bqkv=vec(in_proj_bias),
         wo=dot_w(out_proj_weight.t()), bo=vec(out_proj_bias),
         ln1_s=vec(ln1_weight), ln1_b=vec(ln1_bias),
         w1=dot_w(conv1_weight.permute(2, 1, 0)), b1=vec(conv1_bias),
         w2=dot_w(conv2_weight.permute(2, 1, 0)), b2=vec(conv2_bias),
         ln2_s=vec(ln2_weight), ln2_b=vec(ln2_bias))
+    if store == torch.bfloat16 and w.wo.shape[0] in KERNEL_WIDTHS:
+        w = w._replace(images=pack_images(w.wqkv, w.wo, w.w1, w.w2),
+                       **dict.fromkeys(_DOT_WEIGHTS))
+    return w
+
+
+def unpacked(weights: FFTBlockWeights) -> FFTBlockWeights:
+    """The same weights with the dot-weight fields set: rebuilt from the
+    images where :func:`pack_weights` kept only those."""
+    if weights.images is None:
+        return weights
+    e, c = weights.bo.shape[0], weights.b1.shape[0]
+    return weights._replace(images=None, **dict(zip(
+        _DOT_WEIGHTS, unpack_images(weights.images, e, c))))
 
 
 def as_float32(weights: FFTBlockWeights) -> FFTBlockWeights:
     """The same weights with float32 dot weights (the CUDA-core
     instance's layout)."""
+    weights = unpacked(weights)
     return weights._replace(**{n: getattr(weights, n).float()
                                for n in _DOT_WEIGHTS})
 
@@ -192,28 +254,75 @@ def cuda_core_smem_bytes(e: int, c: int) -> int:
     return 4 * ((_CC_ROWS + 4) * e + (_CC_ROWS + 2) * c + _CC_WEIGHT_SLICE)
 
 
-def _tc_smem_bytes(e: int, h: int) -> int:
-    """The tensor-core instance's largest launch: the conv ring ((128 + 2)
-    x 32 operand rows and 3 x 32 x 128 weights a stage), beside the
-    projections' ring (128 x 32 and 32 x 128 a stage), the E=128
-    out-projection's float32 tile and attention's two stages of K and V."""
-    row = _TC_TILE + _TC_PAD
-    conv = (_TC_TILE + 2) * (_TC_DEPTH + _TC_PAD) + 3 * _TC_DEPTH * row
-    proj = _TC_TILE * (_TC_DEPTH + _TC_PAD) + _TC_DEPTH * row
-    ln_tile = _TC_TILE * (_TC_TILE + 4) * 4 if e == _TC_TILE else 0
-    attn = 4 * _TC_ATTN_ROWS * (e // h + _TC_PAD) * 2
-    return max(_TC_STAGES * 2 * max(conv, proj), ln_tile, attn)
+def _tc_conv_region(e: int, blocks: int) -> int:
+    """Launch 3's operand and hidden with ``blocks`` 64-channel hidden
+    blocks a block: mt m64 row tiles (2 at E=128, else 1), the operand's
+    64 mt + 2 rows rounded up to 1 KB, then the hidden's; or the pre-LN
+    tile over both."""
+    rows = _TC_ROWS * (2 if e == 128 else 1)
+    operand = -(-(rows + 2) * e * 2 // 1024) * 1024
+    return max(operand + blocks * _TC_BLOCK * rows // _TC_ROWS,
+               rows * (e + 8) * 4)
+
+
+def _tc_conv_stages(e: int, blocks: int) -> int:
+    """Launch 3's ring: as many stages (an even count) as the shared
+    memory leaves, up to 24."""
+    free = (SMEM_BYTES - _tc_conv_region(e, blocks)) // (_TC_BLOCK + 16)
+    return min(_TC_CONV_RING_MAX, free // 2 * 2)
+
+
+def _tc_cluster(e: int, blocks: int) -> int:
+    """The smallest cluster over which ``blocks`` 64-channel hidden blocks
+    fit beside 8 ring stages (0: none up to 8 blocks does)."""
+    cs = 1
+    while cs <= min(_TC_CLUSTER, blocks):
+        if _tc_conv_stages(e, -(-blocks // cs)) >= 8:
+            return cs
+        cs *= 2
+    return 0
+
+
+def _tc_conv_chunks(e: int, c: int) -> int:
+    """Launch 3's chunks of the hidden: 1 where a cluster holds it, else
+    the fewest equal ones that a cluster of 8 holds."""
+    n = 1
+    while not _tc_cluster(e, -(-(c // 64) // n)):
+        n += 1
+    return n
+
+
+def _tc_smem_bytes(e: int, h: int, c: int) -> int:
+    """The tensor-core instance's largest launch (launch 3 at its largest
+    chunk and smallest cluster)."""
+    d = e // h
+    tile = 2 * _TC_ROWS * d
+    stage = max(tile, _TC_BLOCK)
+    rows = 4 * _TC_ROWS * e
+    qkv = rows + min(_TC_RING_MAX, (SMEM_BYTES - rows) // (_TC_BLOCK + 16)) \
+        * (_TC_BLOCK + 16)
+    fixed = 2 * _TC_ROWS * e + 2 * tile + 6 * _TC_ROWS * 4
+    stages = min(12, (SMEM_BYTES - fixed) // (2 * (stage + 16)))
+    attn = fixed + 2 * stages * (stage + 16)
+    chunk = -(-(c // 64) // _tc_conv_chunks(e, c))
+    blocks = -(-chunk // _tc_cluster(e, chunk))
+    conv = _tc_conv_region(e, blocks) \
+        + _tc_conv_stages(e, blocks) * (_TC_BLOCK + 16)
+    return max(qkv, attn, conv)
 
 
 @functools.lru_cache(maxsize=256)
 def plan_fft_block(t: int, e: int, h: int, c: int, dot_dtype) -> FFTBlockPlan:
     """K1's instance at (T, E, H, C) for ``dot_dtype``, mirroring
-    ``csrc/fft_block_tc.cu`` and ``csrc/fft_block.cu``: the tensor-core
-    instance for bfloat16 dots at C % 128 == 0 (any C: it streams the
-    weights), the CUDA-core one otherwise (C % 16 == 0 with its conv tile
-    in one block's shared memory, :func:`cuda_core_smem_bytes`). Both take
-    E in :data:`KERNEL_WIDTHS`, D = E / H in :data:`KERNEL_HEAD_DIMS` and
-    any T. Raises ValueError outside that envelope."""
+    ``csrc/fft_block_tc.cuh`` and ``csrc/fft_block.cu``: the tensor-core
+    instance for bfloat16 dots at C % 128 == 0 (it streams the weights;
+    its conv launch runs in chunks of the hidden past what a cluster of 8
+    blocks holds: C above 4096, 8192, 6144 at E = 128, 256, 512), the
+    CUDA-core one otherwise (C % 16 == 0 with
+    its conv tile in one block's shared memory,
+    :func:`cuda_core_smem_bytes`). Both take E in :data:`KERNEL_WIDTHS`,
+    D = E / H in :data:`KERNEL_HEAD_DIMS` and any T. Raises ValueError
+    outside that envelope."""
     del t
     if e not in KERNEL_WIDTHS or h <= 0 or e % h \
             or e // h not in KERNEL_HEAD_DIMS:
@@ -222,8 +331,8 @@ def plan_fft_block(t: int, e: int, h: int, c: int, dot_dtype) -> FFTBlockPlan:
                          f"got E={e}, H={h}")
     if dot_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"fused_fft_block: dot_dtype {dot_dtype}")
-    if bf16_weights(c, dot_dtype):
-        return FFTBlockPlan("tensor_core", _tc_smem_bytes(e, h))
+    if c > 0 and bf16_weights(c, dot_dtype):
+        return FFTBlockPlan("tensor_core", _tc_smem_bytes(e, h, c))
     smem = cuda_core_smem_bytes(e, c)
     if c <= 0 or c % 16 or smem > SMEM_BYTES:
         raise ValueError(f"fused_fft_block: the CUDA-core kernel takes conv "
@@ -256,9 +365,22 @@ def _tc_kernels():
     ws = lib.fft_block_tc_workspace_bytes
     ws.argtypes, ws.restype = [_I] * 5, ctypes.c_longlong
     fwd = lib.fft_block_tc_forward
-    fwd.argtypes = [_P] * 15 + [_I] + [_P] * 2 + [_I] * 5 + [_P]
+    fwd.argtypes = _TC_ARGTYPES
     fwd.restype = _I
     return ws, fwd
+
+
+# fft_block_tc_forward's arguments: x, lengths, images, the eight vectors,
+# film, film_stride, workspace, out, B, T, E, C, H, stream
+_TC_ARGTYPES = [_P] * 12 + [_I] + [_P] * 2 + [_I] * 5 + [_P]
+
+
+def tc_kernel_weights(w: FFTBlockWeights):
+    """The tensor-core launch's weight pointers after (x, lengths): the
+    images, then the vectors."""
+    return (w.images.data_ptr(), w.bqkv.data_ptr(), w.bo.data_ptr(),
+            w.ln1_s.data_ptr(), w.ln1_b.data_ptr(), w.b1.data_ptr(),
+            w.b2.data_ptr(), w.ln2_s.data_ptr(), w.ln2_b.data_ptr())
 
 
 def kernel_smem_bytes(e: int, h: int, c: int, instance: str) -> int:
@@ -284,14 +406,18 @@ def _tc_workspace_bytes(B, T, E, C, H):
 
 
 @functools.lru_cache(maxsize=64)
-def _weight_specs(E, C, dot):
-    """(name, shape, dtype) of every weight the instance reads."""
+def _weight_specs(E, C, tensor_core):
+    """(name, shape, dtype) of every weight the instance reads: the
+    vectors, then the dot weights (the tensor-core instance's as images)."""
     f32 = torch.float32
-    return (("wqkv", (E, 3 * E), dot), ("bqkv", (3 * E,), f32),
-            ("wo", (E, E), dot), ("bo", (E,), f32), ("ln1_s", (E,), f32),
-            ("ln1_b", (E,), f32), ("w1", (3, E, C), dot), ("b1", (C,), f32),
-            ("w2", (3, C, E), dot), ("b2", (E,), f32), ("ln2_s", (E,), f32),
-            ("ln2_b", (E,), f32))
+    vectors = (("bqkv", (3 * E,), f32), ("bo", (E,), f32),
+               ("ln1_s", (E,), f32), ("ln1_b", (E,), f32), ("b1", (C,), f32),
+               ("b2", (E,), f32), ("ln2_s", (E,), f32), ("ln2_b", (E,), f32))
+    if tensor_core:
+        return vectors + (("images", (4 * E * E + 6 * E * C,),
+                           torch.bfloat16),)
+    return vectors + (("wqkv", (E, 3 * E), f32), ("wo", (E, E), f32),
+                      ("w1", (3, E, C), f32), ("w2", (3, C, E), f32))
 
 
 def _check_cuda(x, weights, film, lengths, tensor_core):
@@ -301,11 +427,11 @@ def _check_cuda(x, weights, film, lengths, tensor_core):
     dev = x.device
     if x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError("fused_fft_block: x must be contiguous float32")
-    dot = torch.bfloat16 if tensor_core else torch.float32
-    for name, shape, dtype in _weight_specs(E, weights.w1.shape[-1], dot):
+    C = weights.b1.shape[0]
+    for name, shape, dtype in _weight_specs(E, C, tensor_core):
         t = getattr(weights, name)
-        if (t.shape != shape or t.dtype != dtype or t.device != dev
-                or not t.is_contiguous()):
+        if (t is None or t.shape != shape or t.dtype != dtype
+                or t.device != dev or not t.is_contiguous()):
             raise ValueError(f"fused_fft_block: weight {name} must be "
                              f"contiguous {dtype} {shape} on {dev}")
     if lengths.shape != (B,) or lengths.dtype != torch.int32 \
@@ -333,7 +459,7 @@ def fft_block_cuda(x, weights: FFTBlockWeights, film, lengths, *,
     ``.tc_captured``) under CUDA-graph capture; raises on what the
     kernels do not take or on a launch error."""
     B, T, E = x.shape
-    C = weights.w1.shape[-1]
+    C = weights.b1.shape[0]
     planned = plan_fft_block(T, E, num_heads, C, dot_dtype).instance
     instance = instance or planned
     if instance not in (planned, "cuda_core"):
@@ -346,23 +472,25 @@ def fft_block_cuda(x, weights: FFTBlockWeights, film, lengths, *,
     with torch.cuda.device(x.device):
         capturing = torch.cuda.is_current_stream_capturing()
         stream = torch.cuda.current_stream().cuda_stream
-        args = (x.data_ptr(), lengths.data_ptr(), w.wqkv.data_ptr(),
-                w.bqkv.data_ptr(), w.wo.data_ptr(), w.bo.data_ptr(),
-                w.ln1_s.data_ptr(), w.ln1_b.data_ptr(), w.w1.data_ptr(),
-                w.b1.data_ptr(), w.w2.data_ptr(), w.b2.data_ptr(),
-                w.ln2_s.data_ptr(), w.ln2_b.data_ptr(),
-                None if film is None else film.data_ptr(), film_stride)
+        film_ptr = None if film is None else film.data_ptr()
         if tensor_core:
             ws = torch.empty(_tc_workspace_bytes(B, T, E, C, num_heads),
                              dtype=torch.uint8, device=x.device)
-            err = _tc_kernels()[1](*args, ws.data_ptr(), out.data_ptr(), B,
-                                   T, E, C, num_heads, stream)
+            err = _tc_kernels()[1](
+                x.data_ptr(), lengths.data_ptr(), *tc_kernel_weights(w),
+                film_ptr, film_stride, ws.data_ptr(), out.data_ptr(), B, T,
+                E, C, num_heads, stream)
         else:
             # qkv (B T, 3E), ctx and attn (B T, E) float32
             scratch = torch.empty((5, B * T, E), dtype=torch.float32,
                                   device=x.device)
             err = _cuda_core_kernel()(
-                *args, scratch[0].data_ptr(), scratch[3].data_ptr(),
+                x.data_ptr(), lengths.data_ptr(), w.wqkv.data_ptr(),
+                w.bqkv.data_ptr(), w.wo.data_ptr(), w.bo.data_ptr(),
+                w.ln1_s.data_ptr(), w.ln1_b.data_ptr(), w.w1.data_ptr(),
+                w.b1.data_ptr(), w.w2.data_ptr(), w.b2.data_ptr(),
+                w.ln2_s.data_ptr(), w.ln2_b.data_ptr(), film_ptr,
+                film_stride, scratch[0].data_ptr(), scratch[3].data_ptr(),
                 scratch[4].data_ptr(), out.data_ptr(), B, T, E, C,
                 num_heads, int(dot_dtype == torch.bfloat16), stream)
     if err != 0:

@@ -25,7 +25,9 @@ from daft_exprt_tpu_torch.models.modules import FFTBlock
 from daft_exprt_tpu_torch.ops.fft_block import (FFTBlockPlan, SMEM_BYTES,
                                                 fft_block_plain,
                                                 fused_fft_block,
-                                                plan_fft_block)
+                                                pack_images,
+                                                plan_fft_block,
+                                                unpack_images, unpacked)
 
 E, C = 32, 64
 
@@ -129,6 +131,67 @@ def test_plain_matches_pallas_bf16(rng_np, B, H, T, with_film, E, C):
     np.testing.assert_allclose(out, pallas, rtol=1e-3, atol=1e-3)
 
 
+def _dot_params(block):
+    """The block's dot weights in the kernels' (K, N) layout, in bf16."""
+    p = block._params()
+    return {name: t.detach().to(torch.bfloat16) for name, t in (
+        ("wqkv", p[0].t()), ("wo", p[2].t()), ("w1", p[6].permute(2, 1, 0)),
+        ("w2", p[8].permute(2, 1, 0)))}
+
+
+# the bf16 cases whose dot weights the tensor-core instance takes as images
+IMAGE_CASES = [c for c in BF16_CASES if c[4] % 64 == 0 and c[5] % 128 == 0]
+
+
+@pytest.mark.parametrize("B,H,T,with_film,E,C", IMAGE_CASES,
+                         ids=_ids(IMAGE_CASES))
+def test_plain_on_images_matches_pallas_bf16(rng_np, B, H, T, with_film, E,
+                                             C):
+    # The tensor-core instance reads the dot weights only as images
+    # (pack_images); the weights rebuilt from them are the block's bf16
+    # parameters bit for bit, and plain on them is held to the Pallas kernel
+    # as in test_plain_matches_pallas_bf16.
+    jparams, x, film, lengths = _case(rng_np, B, H, T, with_film, E, C)
+    valid = np.arange(T)[None, :] < lengths[:, None]
+    pallas = np.asarray(jax_fused(
+        jnp.asarray(x), jparams, None if film is None else jnp.asarray(film),
+        jnp.asarray(valid), num_heads=H, dot_dtype=jnp.bfloat16,
+        interpret=True))
+    block = _port_block(jparams, H, E, C)
+    w = block.kernel_weights(torch.bfloat16)
+    dots = dict(zip(("wqkv", "wo", "w1", "w2"),
+                    unpack_images(w.images, E, C)))
+    for name, t in dots.items():
+        assert torch.equal(t, _dot_params(block)[name]), name
+    out = fft_block_plain(
+        torch.from_numpy(x), w._replace(images=None, **dots),
+        None if film is None else torch.from_numpy(film),
+        torch.from_numpy(lengths), num_heads=H,
+        dot_dtype=torch.bfloat16).numpy()
+    np.testing.assert_array_equal(out[~valid], 0.0)
+    np.testing.assert_allclose(out, pallas, rtol=1e-3, atol=1e-3)
+
+
+def test_image_blocks_are_wgmma_operands():
+    # A 64 x 64 block of a (K, N) matrix is [8][64][8]: 8 K rows of a column
+    # 16 bytes apart, then the next 8 K rows; blocks of a 64-column slice
+    # consecutive over K, slices in column order.
+    e, c = 64, 128
+    gen = torch.Generator().manual_seed(0)
+    w1 = torch.randn(3, e, c, generator=gen)
+    img = pack_images(torch.randn(e, 3 * e, generator=gen),
+                      torch.randn(e, e, generator=gen), w1,
+                      torch.randn(3, c, e, generator=gen))
+    assert img.shape == (4 * e * e + 6 * e * c,) and img.is_contiguous()
+    blocks = img[4 * e * e:4 * e * e + 3 * e * c].reshape(
+        c // 64, 3 * e // 64, 8, 64, 8)
+    flat = w1.reshape(3 * e, c)  # rows tap-major
+    for nb, kb, kg, n, k8 in [(0, 0, 0, 0, 0), (1, 2, 3, 17, 5),
+                              (1, 1, 7, 63, 7)]:
+        assert blocks[nb, kb, kg, n, k8] == flat[64 * kb + 8 * kg + k8,
+                                                 64 * nb + n]
+
+
 def test_kernel_weights_repack_after_load(rng_np):
     block = _port_block(_jax_block(rng_np, 2), 2)
     first = block.kernel_weights(torch.float32)
@@ -140,6 +203,29 @@ def test_kernel_weights_repack_after_load(rng_np):
     assert not torch.equal(again.wqkv, first.wqkv)
     # bf16 packing rounds the dot weights, not the vectors
     assert torch.equal(again.wqkv, again.wqkv.bfloat16().float())
+
+
+def test_kernel_weights_keep_the_images_only(rng_np):
+    # Where the tensor-core instance takes the block, its dot weights are
+    # held once, as images; unpacked() rebuilds the (K, N) layout, and the
+    # wrapper's plain version gives the same output on either.
+    e, c, h = 128, 128, 2
+    block = _port_block(_jax_block(rng_np, h, e, c), h, e, c)
+    w = block.kernel_weights(torch.bfloat16)
+    assert all(getattr(w, n) is None for n in ("wqkv", "wo", "w1", "w2"))
+    assert w.images.dtype == torch.bfloat16
+    assert w.images.shape == (4 * e * e + 6 * e * c,)
+    full = unpacked(w)
+    assert full.images is None
+    for name, t in _dot_params(block).items():
+        assert torch.equal(getattr(full, name), t), name
+    x = torch.from_numpy(rng_np.standard_normal((2, 16, e)).astype(
+        np.float32))
+    lengths = torch.tensor([16, 9], dtype=torch.int32)
+    got = fused_fft_block(x, w, None, lengths, num_heads=h)
+    want = fft_block_plain(x, full, None, lengths, num_heads=h,
+                           dot_dtype=torch.bfloat16)
+    assert torch.equal(got, want)
 
 
 def test_wrapper_takes_plain_only_on_cpu(rng_np):
@@ -155,14 +241,31 @@ def test_wrapper_takes_plain_only_on_cpu(rng_np):
 
 
 # (T, E, H, C, dot dtype, instance, shared-memory bytes): the tensor-core
-# instance's largest launch is the conv ring, 3 stages x ((128 + 2) x 40 +
-# 3 x 32 x 136) bf16, at every shape; the CUDA-core one's the conv tile,
-# 4 x ((32 + 4) E + (32 + 2) C + 3 x 16 x 128) bytes
+# instance's largest launch. Its rings take what the rest leaves, 8 KB
+# blocks and 16 bytes of mbarriers a stage. At E=128 with 2 heads of 64,
+# attention: ctx (64 x 128 bf16), two Q tiles, LN1's sums and 2 x 12
+# stages (the same at C=2048, whose hidden does not fit one block's 64
+# rows); with 8 heads of 16, the conv launch: two m64 tiles' operand (130
+# x 128 bf16, rounded up to 33 KB) and 8 hidden blocks of 128 x 64 over a
+# cluster of 2 and 8 stages, and at C=4224, past what a cluster of 8
+# holds, two chunks of 33 hidden blocks, 5 a block of a cluster of 8 and
+# 14 stages; at E=512 and 256 the conv launch's f32
+# pre-LN tile (64 x (E + 8)) beside 12 and 20 stages. The CUDA-core
+# one's is the conv tile, 4 x ((32 + 4) E + (32 + 2) C + 3 x 16 x 128)
+# bytes.
+STAGE = 8192 + 16
+ATTN_E128_D64 = 64 * 128 * 2 + 2 * 8192 + 1536 + 24 * STAGE
+CONV_E128 = 33792 + 8 * 16384 + 8 * STAGE
 PLANS = [
-    (512, 128, 2, 1024, torch.bfloat16, "tensor_core", 109536),
-    (64, 128, 8, 1024, torch.bfloat16, "tensor_core", 109536),
-    (768, 512, 4, 512, torch.bfloat16, "tensor_core", 109536),
-    (200, 256, 2, 256, torch.bfloat16, "tensor_core", 109536),
+    (512, 128, 2, 1024, torch.bfloat16, "tensor_core", ATTN_E128_D64),
+    (64, 128, 8, 1024, torch.bfloat16, "tensor_core", CONV_E128),
+    (768, 512, 4, 512, torch.bfloat16, "tensor_core",
+     64 * 520 * 4 + 12 * STAGE),
+    (200, 256, 2, 256, torch.bfloat16, "tensor_core",
+     64 * 264 * 4 + 20 * STAGE),
+    (64, 128, 2, 2048, torch.bfloat16, "tensor_core", ATTN_E128_D64),
+    (64, 128, 8, 4224, torch.bfloat16, "tensor_core",
+     33792 + 5 * 16384 + 14 * STAGE),
     (512, 128, 2, 1024, torch.float32, "cuda_core", 182272),
     (768, 512, 4, 512, torch.float32, "cuda_core", 167936),
     (200, 256, 2, 256, torch.float32, "cuda_core", 96256),
@@ -203,6 +306,9 @@ def test_kernel_weights_layout(rng_np, dtype, C, stored):
     block = _port_block(_jax_block(rng_np, 2, E, C), 2, E, C)
     w = block.kernel_weights(dtype)
     for name, t in zip(w._fields, w):
+        if name == "images":  # the tensor-core instance's only: E=32 has none
+            assert t is None, name
+            continue
         assert t.is_contiguous(), name
         dot = name in ("wqkv", "wo", "w1", "w2")
         assert t.dtype == (stored if dot else torch.float32), name
