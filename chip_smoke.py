@@ -314,6 +314,15 @@ ms of 20, profiled device busy, K1's and K5's device ms), and for one
 flagship mel request alone (host ms of 20 requests, profiled device
 busy).
 
+    python3 chip_smoke.py --ab-conv-ff PARENT_DIR
+
+times K3's and K4's forward and backward wrappers (rate 0.1, bf16, the
+tensor-core instance) at every ``CONV_FF_TIMED`` shape (CUDA-event ms,
+device ms summed by kernel and as the union of the kernels' intervals,
+the kernels' ms) and a replayed flagship and wide training step (host
+ms, device busy as a union, the conv-FF kernels' device ms), on the same
+seeded inputs in both checkouts, parent, this, this, parent twice.
+
     python3 chip_smoke.py --ab-k2 PARENT_DIR
 
 times K2's forward and backward wrappers as ``check_k2`` does
@@ -1298,7 +1307,8 @@ def check_k2():
 # largest frame bucket. K4: the wide ablation (E=512, C=512) at the
 # port plan's block (None); edges (untimed): T not a multiple of the
 # tile with a row whose frames past 13 are zero (as the block's row mask
-# leaves them; its cotangent is zero there too), E=256, and one C block.
+# leaves them; its cotangent is zero there too), E=256, E=384 (a cluster
+# of 3 column tiles on the tensor-core instance), and one C block.
 K3_SHAPES = [("frame_rate", 16, 768, E, C, None, None),
              ("symbol_rate", 16, 128, E, C, None, None),
              ("edge_T40", 2, 40, E, C, None, None),
@@ -1307,8 +1317,10 @@ K4_SHAPES = [("wide_frame_rate", 16, 768, 512, 512, None, None),
              ("wide_symbol_rate", 16, 128, 512, 512, None, None),
              ("edge_T40_short_row", 2, 40, 512, 512, None, [40, 13]),
              ("edge_E256", 2, 64, 256, 256, None, None),
+             ("edge_E384", 2, 100, 384, 384, None, None),
              ("edge_single_block", 2, 64, 512, 128, 128, None)]
-CONV_FF_TIMED = ("frame_rate", "symbol_rate", "wide_frame_rate")
+CONV_FF_TIMED = ("frame_rate", "symbol_rate", "wide_frame_rate",
+                 "wide_symbol_rate")
 # the tensor-core instance at the frame-rate shape (K3: flagship, K4: wide),
 # bf16, CUDA-event ms of one call (forward, backward): a fall back onto the
 # CUDA-core instances (K3 0.91 / 3.20, K4 2.9 / 9.1 ms on an H100) fails
@@ -1363,9 +1375,39 @@ def conv_ff_params(gen, rng, E_, C_):
     return ordinary, dyadic
 
 
+def check_tc_plan(kernel, shapes):
+    """The wrapper's plan of the tensor-core instance of K3 and K4 equals
+    the built kernel's own at every shape of ``shapes``: its launches
+    (``tc_launch_plan`` against ``tc_built_plan``: row tiles, padded rows,
+    conv_e's splits and cluster, wgrad's cluster, conv_c's blocks and each
+    launch's shared memory), its workspace in both directions, and the
+    largest shared memory ``plan_conv_ff_train`` and
+    ``plan_conv_ff_blocked`` name, within one block's 227 KB."""
+    from daft_exprt_tpu_torch.ops.conv_ff_train import (
+        _tc_workspace_bytes, tc_built_plan, tc_launch_plan, tc_smem_bytes,
+        tc_workspace_bytes)
+
+    plans = {}
+    for name, B, T, E_, C_, _, _ in shapes:
+        mirror, built = tc_launch_plan(B, T, E_, C_), tc_built_plan(B, T, E_,
+                                                                    C_)
+        ws = [(tc_workspace_bytes(B, T, E_, C_, bw),
+               _tc_workspace_bytes(B, T, E_, C_, bw)) for bw in (False, True)]
+        smem = max(built.smem_conv_c, built.smem_conv_e, built.smem_wgrad)
+        if (mirror != built or any(a != b for a, b in ws)
+                or smem != tc_smem_bytes(E_) or smem > 232448):
+            raise AssertionError(f"{kernel} tensor-core plan at {name}: "
+                                 f"{mirror}, kernel {built}, workspace {ws}")
+        plans[name] = {**built._asdict(), "workspace_fwd": ws[0][1],
+                       "workspace_bwd": ws[1][1]}
+    print(f"{kernel} tensor-core plans", json.dumps(plans), flush=True)
+    return plans
+
+
 def check_k4_plan():
-    """The wrapper's shared-memory plan of K4's tensor-core instance equals
-    the built kernel's own count at every width it takes."""
+    """K4's plan names the tensor-core instance at bf16 with the built
+    kernel's shared memory at every width it takes, and its launch plan at
+    every K4 shape (``check_tc_plan``)."""
     from daft_exprt_tpu_torch.ops.conv_ff_train import (plan_conv_ff_blocked,
                                                         tc_smem_bytes)
 
@@ -1379,13 +1421,15 @@ def check_k4_plan():
         plan[width] = built
     print("K4 tensor-core shared memory per width", json.dumps(plan),
           flush=True)
-    return plan
+    return {"smem_bytes_by_width": plan,
+            "launches": check_tc_plan("K4", K4_SHAPES)}
 
 
 def check_k3_plan():
     """K3's plan names the tensor-core instance at bf16 and the CUDA-core
     one at f32 at every K3 shape, each with its built kernel's own
-    shared-memory count."""
+    shared-memory count, and the tensor-core launch plan at every K3 shape
+    (``check_tc_plan``)."""
     from daft_exprt_tpu_torch.ops.conv_ff_train import (cuda_core_smem_bytes,
                                                         plan_conv_ff_train,
                                                         tc_smem_bytes)
@@ -1401,7 +1445,8 @@ def check_k3_plan():
                                      f"kernel {count}")
             built[instance] = count
     print("K3 shared memory per instance", json.dumps(built), flush=True)
-    return built
+    return {"smem_bytes_by_instance": built,
+            "launches": check_tc_plan("K3", K3_SHAPES)}
 
 
 def staged_cublas_ms(x, w1k, w2k):
@@ -1620,6 +1665,129 @@ def check_conv_ff(kernel, shapes, gen, seed):
                         B, T, dot_dtype, True, E=E_, C=C_)
                     print(f"{kernel} timed", json.dumps(row), flush=True)
                 rows.append(row)
+    return rows
+
+
+# the tensor-core conv-FF's partial-sum depths (k16 columns a fresh f32
+# partial of a conv GEMM spans; 0: every product chained inside the tensor
+# cores; the weight gradients' partials span a 64-row chunk unless 0), the
+# shapes they are held at (E = 128 and 512), the products held to exact
+# sums, and how far past plain's distance the instance's depth may be
+CONV_FF_SUMS = (64, 192, 0)
+CONV_FF_SUMS_SHAPES = ("frame_rate", "wide_frame_rate")
+CONV_FF_SUMS_PRODUCTS = ("out", "dx", "dw1", "db1", "dw2")
+CONV_FF_SUMS_FACTOR = 1.5
+
+
+def conv_ff_exact(x, w1, b1, w2, b2, ls, lb, film, g):
+    """K3/K4's function at rate 0 with exact sums: the operands rounded to
+    bf16 where the kernels round them (x, the weights, h, da2, da1),
+    products, sums and LayerNorm in float64: (out, dx, dw1 (3, E, C), db1,
+    dw2 (3, C, E))."""
+    from daft_exprt_tpu_torch.ops.conv_ff_train import (_conv3, _conv3_t,
+                                                        _shifts)
+
+    def rnd(t):
+        return t.to(torch.bfloat16).double()
+
+    E_ = x.shape[-1]
+    w1k, w2k = rnd(w1.permute(2, 1, 0)), rnd(w2.permute(2, 1, 0))
+    xc = rnd(x)
+    a1 = _conv3(xc, w1k) + b1.double()
+    h = rnd(torch.relu(a1))
+    r = _conv3(h, w2k) + b2.double() + x.double()
+    mean = r.mean(-1, keepdim=True)
+    inv = torch.rsqrt((r - mean).square().mean(-1, keepdim=True) + 1e-5)
+    n = (r - mean) * inv
+    fd, gd = film.double(), g.double()
+    out = fd[:, None, :E_] * (n * ls.double() + lb.double()) + fd[:, None, E_:]
+    dn = gd * fd[:, None, :E_] * ls.double()
+    dr = (dn - dn.mean(-1, keepdim=True)
+          - n * (dn * n).mean(-1, keepdim=True)) * inv
+    da2c = rnd(dr)
+    da1 = torch.where(a1 > 0, _conv3_t(da2c, w2k), 0.0)
+    da1c = rnd(da1)
+    dx = dr + _conv3_t(da1c, w1k)
+    dw1 = torch.stack([torch.einsum("bte,btc->ec", s, da1c)
+                       for s in _shifts(xc)])
+    dw2 = torch.stack([torch.einsum("btc,bte->ce", s, da2c)
+                       for s in _shifts(h)])
+    return out, dx, dw1, da1.sum((0, 1)), dw2
+
+
+def conv_ff_sums(gen, rng):
+    """The tensor-core conv-FF's partial-sum depths against exact sums
+    (conv_ff_exact) at E = 128 (K3's frame rate) and 512 (K4's), rate 0:
+    each depth's relative L2 distance of every product's output from the
+    exact one beside plain's (bf16 dots, float32 sums in torch.matmul's
+    order), and its device ms (forward + backward, profiler). Fails unless
+    the instance's depth (TC_SUM_K) is within CONV_FF_SUMS_FACTOR of
+    plain's distance for every product. The other depths are timed only:
+    no path runs them. As in check_conv_ff, the cotangent is zero on the
+    three rows around each row with a conv1 pre-activation near zero
+    (relu_tie_rows): there any sum order may take the other ReLU branch
+    than the exact sums, which moves da1 by a whole value (one such row
+    put the shipped depth at 5.7x plain's distance in dx and 28x in db1
+    on an H100, where another draw of weights put it at 0.9x)."""
+    from daft_exprt_tpu_torch.ops.conv_ff_train import (
+        TC_SUM_K, conv_ff_backward_cuda, conv_ff_blocked_plain,
+        conv_ff_blocked_plain_backward, conv_ff_forward_cuda, plan_conv_ff,
+        tc_weights)
+
+    bf = torch.bfloat16
+    rows = []
+    for name, B, T, E_, C_, _, _ in K3_SHAPES + K4_SHAPES:
+        if name not in CONV_FF_SUMS_SHAPES:
+            continue
+        cb = plan_conv_ff(T, E_, C_, 3)
+        kcb = None if cb == C_ else cb
+        (w1, b1, w2, b2, ls, lb), _ = conv_ff_params(gen, rng, E_, C_)
+        x = _cuda(rng.standard_normal((B, T, E_)).astype(np.float32))
+        g = _cuda(rng.standard_normal((B, T, E_)).astype(np.float32))
+        film = _cuda(np.concatenate([1 + 0.1 * rng.standard_normal((B, E_)),
+                                     0.1 * rng.standard_normal((B, E_))],
+                                    1).astype(np.float32))
+        seeds = _cuda(np.zeros(B, np.int32))
+        tie = relu_tie_rows(x, w1, b1, bf)
+        near = tie.clone()
+        near[:, 1:] |= tie[:, :-1]
+        near[:, :-1] |= tie[:, 1:]
+        g = g * (~near)[..., None]
+        tw = tc_weights(w1, w2)
+        args = (x, tw.w1, b1, tw.w2, b2, ls, lb, film, seeds)
+
+        def run(sum_k):
+            out = conv_ff_forward_cuda(*args, 0.0, bf, kcb, sum_k=sum_k)
+            d = conv_ff_backward_cuda(*args, g, 0.0, bf, kcb,
+                                      (tw.w1r, tw.w2r), sum_k=sum_k)
+            return (out, d[0], d[1], d[2], d[3])
+
+        def distances(got):
+            return {n: _rel_l2(a, b) for n, a, b in
+                    zip(CONV_FF_SUMS_PRODUCTS, got, exact)}
+
+        exact = conv_ff_exact(x, w1, b1, w2, b2, ls, lb, film, g)
+        pargs = (x, w1, b1, w2, b2, ls, lb, film, seeds)
+        pout = conv_ff_blocked_plain(*pargs, 0.0, cb, bf)
+        pg = conv_ff_blocked_plain_backward(*pargs, g, 0.0, cb, bf)
+        row = {"shape": name, "B": B, "T": T, "E": E_, "C": C_,
+               "relu_tie_rows": tie.float().mean().item(),
+               "plain": distances((pout, pg[0], pg[1].permute(2, 1, 0),
+                                   pg[2], pg[3].permute(2, 1, 0)))}
+        for sum_k in CONV_FF_SUMS:
+            row[f"k{sum_k}" if sum_k else "chained"] = {
+                "exact_rel_l2": distances(run(sum_k)),
+                "device_ms": device_ms(lambda: run(sum_k))}
+        shipped = row[f"k{TC_SUM_K}"]["exact_rel_l2"]
+        row["shipped_over_plain"] = {
+            n: shipped[n] / row["plain"][n] for n in CONV_FF_SUMS_PRODUCTS}
+        print("conv_ff sums", json.dumps(row), flush=True)
+        rows.append(row)
+        if max(row["shipped_over_plain"].values()) > CONV_FF_SUMS_FACTOR:
+            raise AssertionError(
+                f"conv_ff sums at {name}: k{TC_SUM_K} past "
+                f"{CONV_FF_SUMS_FACTOR}x plain's distance from exact sums: "
+                f"{row['shipped_over_plain']}")
     return rows
 
 
@@ -3094,9 +3262,9 @@ K2_TC_KERNELS = ("attn_fwd_wgmma_kernel", "attn_bwd_dq_wgmma_kernel",
 K2_KERNELS = ("attn_fwd_kernel", "attn_bwd_dq_kernel",
               "attn_bwd_dkdv_kernel") + K2_TC_KERNELS
 # the tensor-core instance of K3 and K4 (csrc/conv_ff_blocked_tc.cu)
-CONV_FF_TC_KERNELS = ("tc_conv_gemm_kernel", "tc_weight_grad_kernel",
-                      "tc_rows_fwd_kernel", "tc_rows_bwd_kernel",
-                      "sum_rows_kernel")
+CONV_FF_TC_KERNELS = ("cff_pack_x_kernel", "conv_c_wgmma_kernel",
+                      "conv_e_wgmma_kernel", "wgrad_wgmma_kernel",
+                      "cff_finish_kernel")
 K3_KERNELS = ("cff_rows_kernel", "cff_hidden_kernel",
               "wgrad_kernel") + CONV_FF_TC_KERNELS
 K4_KERNELS = ("cffb_rows_kernel", "cffb_hidden_kernel",
@@ -3176,13 +3344,14 @@ def train_batch(hp, rng, L, T, device="cuda"):
 
 
 # one kernel a wrapper call of the training kernels' tensor-core
-# instances: K2's forward and dq launches, the conv-FF's LayerNorm rows
-# (K3 and K4 share the kernels; the wrappers' counters tell them apart)
+# instances: K2's forward and dq launches, the conv-FF's conv2 with the
+# LayerNorm rows (conv_e_wgmma_kernel<OUT_FWD = 0 or OUT_BWD = 1, ...>; K3
+# and K4 share the kernels; the wrappers' counters tell them apart)
 TRAIN_ON_DEVICE = {"attention_train_forward": r"(?<!\w)attn_fwd_wgmma_kernel<",
                    "attention_train_backward":
                        r"(?<!\w)attn_bwd_dq_wgmma_kernel<",
-                   "conv_ff_forward": r"(?<!\w)tc_rows_fwd_kernel<",
-                   "conv_ff_backward": r"(?<!\w)tc_rows_bwd_kernel<"}
+                   "conv_ff_forward": r"(?<!\w)conv_e_wgmma_kernel<0,",
+                   "conv_ff_backward": r"(?<!\w)conv_e_wgmma_kernel<1,"}
 STEP_CHECKS = 4   # steps of each run that holds replays against eager steps
 STEP_ROUNDS = 3   # timing rounds: eager steps, then replayed steps
 
@@ -8043,6 +8212,106 @@ print("AB", json.dumps(ab))
 """
 
 
+# K3's and K4's wrappers (rate 0.1, bf16, the tensor-core instance on
+# weights made once) at every CONV_FF_TIMED shape: CUDA-event ms, device
+# ms summed by kernel and as the union of the kernels' intervals, and the
+# kernels' device ms; then the flagship and the wide training step
+# replayed (16 x 3 rows at L=128, T=768; 3 warm-up steps, 3 rounds of 10):
+# host ms, device busy (the union of the kernels' intervals) and the
+# device ms of the conv-FF instance's kernels (each checkout's
+# CONV_FF_TC_KERNELS) in one profiled step
+AB_CONV_FF = """
+import json, time, numpy as np, torch, chip_smoke as cs
+from daft_exprt_tpu_torch.ops import conv_ff_train as cft
+from daft_exprt_tpu_torch.training.step import dropout_seed, make_train_step
+cs._build.build()
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+ab = {}
+
+
+def union(prof):
+    spans = sorted((e.time_range.start, e.time_range.end) for e in
+                   prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy, end = busy + b - a, b
+        elif b > end:
+            busy, end = busy + b - end, b
+    return busy / 1e3
+
+
+def group_ms(prof, names):
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and any(k in e.key for k in names)) / 1e3
+
+
+gen = torch.Generator().manual_seed(0)
+rng = np.random.default_rng(0)
+bf = torch.bfloat16
+for name, B, T, E_, C_, _, _ in cs.K3_SHAPES + cs.K4_SHAPES:
+    if name not in ("frame_rate", "symbol_rate", "wide_frame_rate",
+                    "wide_symbol_rate"):
+        continue
+    cb = cft.plan_conv_ff(T, E_, C_, 3)
+    kcb = None if cb == C_ else cb
+    (w1, b1, w2, b2, ls, lb), _ = cs.conv_ff_params(gen, rng, E_, C_)
+    x, g = (cs._cuda(rng.standard_normal((B, T, E_)).astype(np.float32))
+            for _ in range(2))
+    film = cs._cuda(np.concatenate([1 + 0.1 * rng.standard_normal((B, E_)),
+                                    0.1 * rng.standard_normal((B, E_))],
+                                   1).astype(np.float32))
+    seeds = cs._cuda(rng.integers(-2 ** 31, 2 ** 31, size=B).astype(np.int32))
+    tw = cft.tc_weights(w1, w2)
+    args = (x, tw.w1, b1, tw.w2, b2, ls, lb, film, seeds)
+
+    def fwd():
+        return cft.conv_ff_forward_cuda(*args, 0.1, bf, kcb)
+
+    def bwd():
+        return cft.conv_ff_backward_cuda(*args, g, 0.1, bf, kcb,
+                                         (tw.w1r, tw.w2r))
+
+    for d, fn in (("fwd", fwd), ("bwd", bwd)):
+        ab[f"{name}_{d}_ms"] = cs.cuda_ms(fn)
+        ab[f"{name}_{d}_device_ms"], ks = cs.device_ms(fn, breakdown=True)
+        ab[f"{name}_{d}_kernels"] = ks and {k["kernel"]: k["ms"] for k in ks}
+        fn()
+        prof, _ = cs.profiled(lambda: [fn() for _ in range(10)])
+        ab[f"{name}_{d}_device_union_ms"] = union(prof) / 10
+for name, make_hp in (("flagship", cs.flagship_hparams),
+                      ("wide", cs.wide_head_hparams)):
+    hp = make_hp(batch_size=16, accumulation_steps=3)
+    batch = cs.train_batch(hp, np.random.default_rng(5), 128, 768)
+    model = cs.DaftExprt(hp, seed=0)
+    step = make_train_step(model, hp)
+    sgen = torch.Generator(device="cuda")
+
+    def run(k, it0):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(k):
+            sgen.manual_seed(dropout_seed(hp, it0 + i))
+            step(batch, sgen, it0 + i)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / k * 1e3
+
+    run(3, 1)
+    ms = [run(10, 4 + 10 * r) for r in range(3)]
+    prof, _ = cs.profiled(lambda: step(batch, sgen, 40))
+    ab.update({f"{name}_step_ms": float(np.median(ms)),
+               f"{name}_step_ms_rounds": ms,
+               f"{name}_step_device_busy_ms": union(prof),
+               f"{name}_step_conv_ff_device_ms": group_ms(
+                   prof, cs.CONV_FF_TC_KERNELS)})
+    del model, step
+print("AB", json.dumps(ab))
+"""
+
+
 def ab_preview() -> str:
     """AB_PREVIEW with this file's ``preview_stream`` and stream in it
     (the other checkout's chip_smoke may lack them)."""
@@ -8053,7 +8322,7 @@ def ab_preview() -> str:
 
 AB_SCRIPTS = {"--ab-train": AB_TRAIN, "--ab-k1": AB_K1, "--ab-serve": AB_SERVE,
               "--ab-k2": AB_K2, "--ab-k5": AB_K5, "--ab-text": AB_TEXT,
-              "--ab-step": AB_STEP,
+              "--ab-step": AB_STEP, "--ab-conv-ff": AB_CONV_FF,
               "--ab-synth": AB_SYNTH, "--ab-preview": ab_preview()}
 
 
@@ -8109,7 +8378,8 @@ def repeat_checks(processes: int, runs: int = 2) -> int:
 
 def ab_train(parent: str, rounds: int = 2, script: str = AB_TRAIN) -> int:
     """The flagship and the wide training step (3 warm-up and 10 timed
-    steps of ``train`` each, then one profiled), or with ``script`` AB_K1
+    steps of ``train`` each, then one profiled), or with ``script``
+    AB_CONV_FF K3's and K4's wrappers and the two steps replayed, or AB_K1
     K1's wrapper at every ``K1_SHAPES`` shape (CUDA-event and device ms)
     and a replayed mel and audio request (host ms, device busy, K1's and
     K5's device ms), or AB_SERVE one flagship mel request (measure/add, B=8, bucket
@@ -8238,6 +8508,7 @@ def main(mode: str | None = None, count: int = 0) -> int:
     mark("train")
     k4_plan = check_k4_plan()
     k4 = check_conv_ff("K4", K4_SHAPES, gen, 9)
+    conv_ff_sums_rows = conv_ff_sums(gen, np.random.default_rng(21))
     mark("k4")
     wide, wide_launches = train(wide_head_hparams(
         batch_size=16, accumulation_steps=3), "conv_ff_train_blocked")
@@ -8337,13 +8608,24 @@ def main(mode: str | None = None, count: int = 0) -> int:
                          launches_tensor_core=train_launches[tc],
                          cuda_core_source="daft_exprt_tpu_torch/csrc/"
                                           "conv_ff_train.cu",
-                         smem_bytes_by_instance=k3_plan)
+                         smem_bytes_by_instance=k3_plan[
+                             "smem_bytes_by_instance"],
+                         tensor_core_plans=k3_plan["launches"],
+                         tensor_core_kernels=CONV_FF_TC_KERNELS,
+                         tensor_core_source="daft_exprt_tpu_torch/csrc/"
+                                            "conv_ff_wgmma.cuh (GEMM cores)",
+                         sums=conv_ff_sums_rows)
         if kernel == "K4":
             extra = dict(instance="tensor_core",
                          launches_tensor_core=wide_launches[tc],
                          cuda_core_source="daft_exprt_tpu_torch/csrc/"
                                           "conv_ff_blocked.cu",
-                         smem_bytes_by_width=k4_plan)
+                         smem_bytes_by_width=k4_plan["smem_bytes_by_width"],
+                         tensor_core_plans=k4_plan["launches"],
+                         tensor_core_kernels=CONV_FF_TC_KERNELS,
+                         tensor_core_source="daft_exprt_tpu_torch/csrc/"
+                                            "conv_ff_wgmma.cuh (GEMM cores)",
+                         sums=conv_ff_sums_rows)
         # the main run's first step is eager (its launches at the
         # wrappers), its capture records as many, the replays run them
         extra.update(

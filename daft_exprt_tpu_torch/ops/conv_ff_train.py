@@ -36,11 +36,15 @@ or K4's (``conv_ff_train_blocked.fwd_launches`` and ``.bwd_launches``),
 or raise; on a CPU tensor they take the plain versions below. Each has
 two instances, which :func:`plan_conv_ff_train` and
 :func:`plan_conv_ff_blocked` name: bfloat16 dots (the training path) take
-the tensor-core one, ``csrc/conv_ff_blocked_tc.cu`` for both (also
-counted in ``tc_fwd_launches`` and ``tc_bwd_launches`` on the same
-functions), float32 dots the CUDA-core ones, ``csrc/conv_ff_train.cu``
-(K3) and ``csrc/conv_ff_blocked.cu`` (K4). A launch under CUDA-graph
-capture (the training step's graph, ``training/step.py``) is counted in
+the tensor-core one, ``csrc/conv_ff_blocked_tc.cu`` on the ``wgmma``
+cores of ``csrc/conv_ff_wgmma.cuh`` for both (3 launches forward, 7
+backward, chained by programmatic dependent launch; the weights as the
+images :func:`tc_weights` packs; :func:`tc_launch_plan` mirrors its
+launches; also counted in ``tc_fwd_launches`` and ``tc_bwd_launches`` on
+the same functions), float32 dots the CUDA-core ones,
+``csrc/conv_ff_train.cu`` (K3) and ``csrc/conv_ff_blocked.cu`` (K4). A
+launch under CUDA-graph capture (the training step's graph,
+``training/step.py``) is counted in
 ``fwd_captured``/``bwd_captured`` (and ``tc_...``) instead: it runs at
 every replay of the graph, where no wrapper runs.
 """
@@ -75,16 +79,27 @@ SMEM_BYTES = 227 * 1024
 _ROW_TILE = 32  # rows per tile (conv_ff_tile.cuh TT)
 _K3_WEIGHT_SLICE = 16  # conv_ff_tile.cuh KC2
 # The tensor-core instance of K3 and K4 (csrc/conv_ff_blocked_tc.cu on the
-# GEMM cores of csrc/conv_ff_tc.cuh): 128 x 128 output tiles,
-# a 3-stage ring of bf16 chunks (32 input channels of the conv operand with
-# a halo row on each side; 64 rows of the weight gradients' operands with
-# a halo row), each shared-memory row padded by 8 elements; the backward's
-# row kernel keeps 8 warps x 5 float32 partial sums of E
+# wgmma cores of csrc/conv_ff_wgmma.cuh): 128 x 128 output tiles; the
+# activations as bf16 images of 64-row chunks that store 66 rows (a halo
+# row on each side); the conv GEMMs' ring of 3 stages (64 input channels of
+# the tile's two chunks and the three taps' 64 x 128 weight blocks), the
+# weight gradients' of 8 (a chunk of 64 channels of the first factor and
+# of 128 of the second); the conv GEMMs with N = E columns and the weight
+# gradients split K over a cluster of at most 8 blocks, sized for the
+# least-loaded SM of an H100's 132
 TC_TILE = 128
-TC_STAGES = 3
-TC_PAD = 8
-TC_CONV_DEPTH = 32
-TC_WGRAD_ROWS = 64
+TC_CHUNK = 64
+TC_CHUNK_ROWS = TC_CHUNK + 2
+TC_CONV_STAGES = 3
+TC_WGRAD_STAGES = 8
+TC_WGRAD_M = 64
+TC_SMS = 132
+TC_MAX_CLUSTER = 8
+# k16 columns of a partial sum (fresh f32 accumulators a k64 chunk, added
+# in order); 192 and 0 (chained) are chip_smoke.py's comparisons
+TC_SUM_K = 64
+_TC_CONV_STAGE = 2 * 8 * TC_CHUNK_ROWS * 16 + 3 * 64 * TC_TILE * 2
+_TC_WGRAD_STAGE = (8 + 16) * TC_CHUNK_ROWS * 16
 
 
 def _rnd(t, dot_dtype):
@@ -99,14 +114,38 @@ def kernel_weights(w1, w2, dot_dtype):
 
 
 class TCWeights(NamedTuple):
-    """The tensor-core instance's bfloat16 weights: w1 (3, E, C) and w2
-    (3, C, E) as :func:`kernel_weights` lays them out, and the tap-reversed
-    transposes the data gradients take, w1r (3, C, E) with w1r[d] =
-    w1[2 - d]^T and w2r (3, E, C)."""
+    """The tensor-core instance's bfloat16 weights as images of its K-major
+    B operand (:func:`pack_image`): w1 (conv1: K = E, N = C), w2 (conv2:
+    K = C, N = E), and the tap-reversed transposes the data gradients take,
+    w1r (tap d = W1[2 - d]^T: K = C, N = E) and w2r (K = E, N = C).
+    :func:`unpack_image` gives back the kernel layout (3, K, N)."""
     w1: torch.Tensor
     w2: torch.Tensor
     w1r: torch.Tensor
     w2r: torch.Tensor
+
+
+def pack_image(w):
+    """Conv weight (N, K, 3) (out, in, tap) -> the bfloat16 image
+    (N/128, K/64, 3, 8, 128, 8): for each 128-column tile and 64-row chunk
+    of K the three taps' blocks [k // 8][n][k % 8], each a contiguous
+    16 KB that one bulk copy brings into shared memory. One cast-copy; N
+    and K that the instance does not take are padded with zeros."""
+    N, K, _ = w.shape
+    w = w.detach()
+    if N % TC_TILE or K % 64:
+        w = F.pad(w, (0, 0, 0, -K % 64, 0, -N % TC_TILE))
+    return w.reshape(-(-N // TC_TILE), TC_TILE, -(-K // 64), 8, 8,
+                     3).permute(0, 2, 5, 3, 1, 4).to(
+        torch.bfloat16, memory_format=torch.contiguous_format)
+
+
+def unpack_image(image, k=None, n=None):
+    """:func:`pack_image`'s image -> the kernel layout (3, K, N), cut to
+    K and N where given."""
+    nt, kc = image.shape[:2]
+    w = image.permute(2, 1, 3, 5, 0, 4).reshape(3, 64 * kc, TC_TILE * nt)
+    return w[:, :k, :n]
 
 
 # w1 -> (versions and addresses of w1 and w2, w2, TCWeights), while w1 lives
@@ -114,23 +153,18 @@ _TC_WEIGHTS = WeakIdKeyDictionary()
 
 
 def tc_weights(w1, w2) -> TCWeights:
-    """:class:`TCWeights` from reference conv weights (out, in, 3), each one
-    cast-copy. They are kept while ``w1`` lives and made again only when
-    either weight is replaced or changes in place (which moves its version
-    counter), so the micro-batches of an optimizer step, forward and
-    backward, share one set."""
+    """:class:`TCWeights` from reference conv weights (out, in, 3). They
+    are kept while ``w1`` lives and made again only when either weight is
+    replaced or changes in place (which moves its version counter), so the
+    micro-batches of an optimizer step, forward and backward, share one
+    set."""
     key = (w1._version, w2._version, w1.data_ptr(), w2.data_ptr())
     kept = _TC_WEIGHTS.get(w1)
     if kept is not None and kept[0] == key and kept[1]() is w2:
         return kept[2]
-
-    def cast(w):
-        return w.detach().to(torch.bfloat16,
-                             memory_format=torch.contiguous_format)
-
-    made = TCWeights(cast(w1.permute(2, 1, 0)), cast(w2.permute(2, 1, 0)),
-                     cast(w1.flip(2).permute(2, 0, 1)),
-                     cast(w2.flip(2).permute(2, 0, 1)))
+    made = TCWeights(pack_image(w1), pack_image(w2),
+                     pack_image(w1.detach().transpose(0, 1).flip(2)),
+                     pack_image(w2.detach().transpose(0, 1).flip(2)))
     _TC_WEIGHTS[w1] = (key, weakref.ref(w2), made)
     return made
 
@@ -175,24 +209,89 @@ class ConvFFPlan(NamedTuple):
     smem_bytes: int   # the largest dynamic shared memory of its launches
 
 
+def _tc_smem():
+    """Dynamic shared memory of the tensor-core instance's three GEMM
+    launches (``csrc/conv_ff_blocked_tc.cu``): the conv ring (3 stages and
+    their 6 mbarriers) with conv_c's 8 warps x 128 float32 db1 sums after
+    it, the same ring for conv_e (its partial tile and row sums go over the
+    drained ring), and the weight gradients' ring."""
+    ring = TC_CONV_STAGES * _TC_CONV_STAGE + 16 * TC_CONV_STAGES
+    return (ring + 8 * TC_TILE * 4, ring,
+            TC_WGRAD_STAGES * _TC_WGRAD_STAGE + 16 * TC_WGRAD_STAGES)
+
+
 def _tc_plan(e: int) -> ConvFFPlan:
-    """The tensor-core instance at width E: its largest shared memory is
-    the conv GEMM's ring ((128 + 2) x 32 operand rows and 3 x 32 x 128
-    weights a stage) or the backward row kernel's 8 x 5 partial rows of E.
-    T and C do not enter."""
-    row = TC_TILE + TC_PAD
-    conv = (TC_TILE + 2) * (TC_CONV_DEPTH + TC_PAD) + 3 * TC_CONV_DEPTH * row
-    wgrad = (TC_WGRAD_ROWS + 2) * row + TC_WGRAD_ROWS * row
-    return ConvFFPlan("tensor_core", TC_TILE,
-                      max(TC_STAGES * 2 * max(conv, wgrad), 8 * 5 * e * 4))
+    """The tensor-core instance at width E: 128-row tiles and the largest
+    shared memory of its launches. E, T and C do not enter."""
+    del e
+    return ConvFFPlan("tensor_core", TC_TILE, max(_tc_smem()))
+
+
+class TCLaunchPlan(NamedTuple):
+    """The tensor-core instance's launches for one call, as
+    ``conv_ff_blocked_tc_plan`` gives them."""
+    row_tiles: int    # 128-row tiles of a batch row
+    image_rows: int   # rows an image stores a batch row (66 a 64-row chunk)
+    e_splits: int     # conv_e (N = E): splits of K = 3C
+    e_cluster: int    # conv_e's cluster: E / 128 column tiles x e_splits
+    w_cluster: int    # wgrad: row splits of a tile, its cluster
+    c_blocks: int     # conv_c (N = C): persistent blocks
+    smem_conv_c: int
+    smem_conv_e: int
+    smem_wgrad: int
+
+
+def _least_load(n: int, hi: int) -> int:
+    """The count s in [1, hi] of equal pieces n units are cut into that
+    least loads the busiest SM at one block an SM, ceil(n s / SMs) / s;
+    the smallest s on a tie."""
+    best, best_w = 1, -(-n // TC_SMS)
+    for s in range(2, hi + 1):
+        w = -(-n * s // TC_SMS)
+        if w * best < best_w * s:
+            best, best_w = s, w
+    return best
+
+
+def tc_launch_plan(b: int, t: int, e: int, c: int) -> TCLaunchPlan:
+    """The launch plan of the tensor-core instance for a (B, T, E) input at
+    C conv channels, mirroring ``csrc/conv_ff_blocked_tc.cu`` ``plan``."""
+    rt = -(-t // TC_TILE)
+    ev = e // TC_TILE
+    # a split keeps at least 4 of the 64-channel chunks
+    splits = _least_load(ev * rt * b,
+                         max(1, min(TC_MAX_CLUSTER // ev, c // 256)))
+    chunks = b * -(-t // TC_CHUNK)
+    w_cluster = _least_load(2 * (e // TC_WGRAD_M) * (c // TC_TILE),
+                            min(chunks, TC_MAX_CLUSTER))
+    return TCLaunchPlan(rt, 2 * rt * TC_CHUNK_ROWS, splits, ev * splits,
+                        w_cluster, min((c // TC_TILE) * rt * b, TC_SMS),
+                        *_tc_smem())
+
+
+def tc_workspace_bytes(b: int, t: int, e: int, c: int, backward: bool) -> int:
+    """Device scratch of a forward or backward call, mirroring the kernel's
+    carve: the images of rnd(x) and h ((B, chunks, K/8, 66, 8) bf16),
+    and for the backward those of rnd(da2) and rnd(da1), dr and the
+    partials of dLN, db2, dfilm and db1 (float32), each 256-byte
+    aligned."""
+    p = tc_launch_plan(b, t, e, c)
+    rows = b * p.image_rows
+    pieces = [2 * rows * e, 2 * rows * c]
+    if backward:
+        parts = b * p.row_tiles * p.e_cluster
+        pieces += [2 * rows * e, 2 * rows * c, 4 * b * t * e,
+                   4 * parts * 3 * e, 4 * parts * 2 * e,
+                   4 * b * p.row_tiles * c]
+    return sum(-(-n // 256) * 256 for n in pieces)
 
 
 def plan_conv_ff_train(t: int, e: int, c: int, dot_dtype) -> ConvFFPlan:
     """K3's instance at (T, E, C) for ``dot_dtype``, mirroring
     ``csrc/conv_ff_blocked_tc.cu`` and ``csrc/conv_ff_train.cu``: the
-    tensor-core instance for bfloat16 dots at C % 128 == 0 (K4's GEMMs with
-    one C block; at E = 128 its conv2 and dx GEMMs split K over C to fill
-    the card), the CUDA-core one otherwise (a 32-row tile: the (32 + 4) x
+    tensor-core instance for bfloat16 dots at C % 128 == 0 (K4's, which
+    takes all of C in one pass; :func:`tc_launch_plan` gives its launches),
+    the CUDA-core one otherwise (a 32-row tile: the (32 + 4) x
     E input, the (32 + 2) x C hidden and a 3 x 16 x E weight slice in
     float32). T does not enter the plan. Raises ValueError outside K3's
     envelope (:func:`k3_takes`)."""
@@ -213,9 +312,9 @@ def plan_conv_ff_blocked(t: int, e: int, c: int, c_block: int,
                          dot_dtype) -> ConvFFPlan:
     """K4's instance at (T, E, C) and C block for ``dot_dtype``, mirroring
     ``csrc/conv_ff_blocked_tc.cu`` and ``csrc/conv_ff_blocked.cu``: the
-    tensor-core instance for bfloat16 dots (its largest shared memory is
-    the conv GEMM's ring: (128 + 2) x 32 operand rows and 3 x 32 x 128
-    weights a stage), the CUDA-core one for float32 (:func:`blocked_smem_bytes`).
+    tensor-core instance for bfloat16 dots (all of C in one pass: the C
+    block does not enter; :func:`tc_launch_plan` gives its launches), the
+    CUDA-core one for float32 (:func:`blocked_smem_bytes`).
     T does not enter: both take any T. Raises ValueError outside K4's
     envelope."""
     del t
@@ -395,10 +494,10 @@ def _tc_kernels():
     ws = lib.conv_ff_blocked_tc_workspace_bytes
     ws.argtypes, ws.restype = [i] * 5, ctypes.c_longlong
     fwd = lib.conv_ff_blocked_tc_forward
-    fwd.argtypes = [p] * 12 + [i] * 5 + [ctypes.c_uint32, f, p]
+    fwd.argtypes = [p] * 11 + [i] * 5 + [ctypes.c_uint32, f, i, p]
     fwd.restype = i
     bwd = lib.conv_ff_blocked_tc_backward
-    bwd.argtypes = [p] * 20 + [i] * 5 + [ctypes.c_uint32, f, p]
+    bwd.argtypes = [p] * 19 + [i] * 5 + [ctypes.c_uint32, f, i, p]
     bwd.restype = i
     return ws, fwd, bwd
 
@@ -410,6 +509,19 @@ def tc_smem_bytes(e: int) -> int:
     fn = load_library("conv_ff_blocked_tc").conv_ff_blocked_tc_smem_bytes
     fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_longlong
     return int(fn(e))
+
+
+def tc_built_plan(b: int, t: int, e: int, c: int) -> TCLaunchPlan:
+    """The built kernel's own launch plan, which :func:`tc_launch_plan`
+    mirrors."""
+    fn = load_library("conv_ff_blocked_tc").conv_ff_blocked_tc_plan
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * len(TCLaunchPlan._fields))()
+    if fn(b, t, e, c, ctypes.addressof(out)) != 0:
+        raise ValueError(f"conv_ff_train: the tensor-core kernel does not "
+                         f"take {(b, t, e)}, C={c}")
+    return TCLaunchPlan(*out)
 
 
 def cuda_core_smem_bytes(c: int) -> int:
@@ -446,7 +558,7 @@ def _check_cuda(x, w1k, b1, w2k, b2, ln_s, ln_b, film, seeds, dot_dtype,
     """Raise on what K3 (``c_block`` None) or K4 does not take; return
     (B, T, C, whether the plan names the tensor-core instance)."""
     B, T, E = x.shape
-    C = w1k.shape[-1]
+    C = b1.shape[0]
     f32 = torch.float32
     if c_block is None:
         if E != KERNEL_WIDTH:
@@ -466,23 +578,34 @@ def _check_cuda(x, w1k, b1, w2k, b2, ln_s, ln_b, film, seeds, dot_dtype,
     if dot_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"conv_ff_train: dot_dtype {dot_dtype}")
     tensor_core = _tensor_core(x, C, c_block, dot_dtype)
-    wt = torch.bfloat16 if tensor_core else f32  # TCWeights or kernel_weights
-    tensors = {"x": (x, (B, T, E), f32), "w1": (w1k, (3, E, C), wt),
-               "b1": (b1, (C,), f32), "w2": (w2k, (3, C, E), wt),
+    if tensor_core:  # TCWeights' images
+        wt, shape = torch.bfloat16, _image_shape
+    else:  # kernel_weights
+        wt, shape = f32, lambda k, n: (3, k, n)
+    tensors = {"x": (x, (B, T, E), f32), "w1": (w1k, shape(E, C), wt),
+               "b1": (b1, (C,), f32), "w2": (w2k, shape(C, E), wt),
                "b2": (b2, (E,), f32), "ln_s": (ln_s, (E,), f32),
                "ln_b": (ln_b, (E,), f32), "film": (film, (B, 2 * E), f32),
                "seeds": (seeds, (B,), torch.int32)}
     if g is not None:
         tensors["g"] = (g, (B, T, E), f32)
     if reversed_weights is not None:
-        tensors["w1r"] = (reversed_weights[0], (3, C, E), wt)
-        tensors["w2r"] = (reversed_weights[1], (3, E, C), wt)
+        tensors["w1r"] = (reversed_weights[0], shape(C, E), wt)
+        tensors["w2r"] = (reversed_weights[1], shape(E, C), wt)
+    elif tensor_core and g is not None:
+        raise ValueError("conv_ff_train: the tensor-core backward takes the "
+                         "reversed weights' images (tc_weights)")
     for name, (t, shape, dtype) in tensors.items():
         if (tuple(t.shape) != shape or t.dtype != dtype
                 or t.device != x.device or not t.is_contiguous()):
             raise ValueError(f"conv_ff_train: {name} must be contiguous "
                              f"{dtype} {shape} on {x.device}")
     return B, T, C, tensor_core
+
+
+def _image_shape(k, n):
+    """Shape of :func:`pack_image`'s image of a (3, K, N) weight."""
+    return (n // TC_TILE, k // 64, 3, 8, TC_TILE, 8)
 
 
 def _dropout_args(rate):
@@ -526,20 +649,21 @@ def _tc_workspace_bytes(B, T, E, C, backward):
 
 
 def _tc_scratch(x, C, backward):
-    """The tensor-core instance's x in bf16 (rounded by the cast) and its
-    workspace."""
+    """The tensor-core instance's workspace (its first launch writes x's
+    bf16 image there: no cast of its own)."""
     B, T, E = x.shape
-    nbytes = _tc_workspace_bytes(B, T, E, C, backward)
-    return (x.to(torch.bfloat16),
-            torch.empty(nbytes, dtype=torch.uint8, device=x.device))
+    return torch.empty(_tc_workspace_bytes(B, T, E, C, backward),
+                       dtype=torch.uint8, device=x.device)
 
 
 def conv_ff_forward_cuda(x, w1k, b1, w2k, b2, ln_s, ln_b, film, seeds,
-                         rate, dot_dtype, c_block=None):
+                         rate, dot_dtype, c_block=None, sum_k=TC_SUM_K):
     """K3's forward kernels, or K4's with ``c_block`` (the tensor-core
-    instance where the plan names it), on kernel-layout weights: float32
-    from :func:`kernel_weights` for the CUDA-core instance, bfloat16 from
-    :func:`tc_weights` for the tensor-core one."""
+    instance where the plan names it), on the instance's weights: float32
+    in the kernel layout from :func:`kernel_weights` for the CUDA-core
+    instance, the bfloat16 images of :func:`tc_weights` for the
+    tensor-core one (whose partial sums span ``sum_k`` k16 columns: 64,
+    192, or 0 for chained)."""
     B, T, C, tensor_core = _check_cuda(x, w1k, b1, w2k, b2, ln_s, ln_b, film,
                                        seeds, dot_dtype, c_block=c_block)
     out = torch.empty_like(x)
@@ -547,13 +671,13 @@ def conv_ff_forward_cuda(x, w1k, b1, w2k, b2, ln_s, ln_b, film, seeds,
         capturing = torch.cuda.is_current_stream_capturing()
         stream = torch.cuda.current_stream().cuda_stream
         if tensor_core:
-            xb, ws = _tc_scratch(x, C, False)
+            ws = _tc_scratch(x, C, False)
             err = _tc_kernels()[1](
-                xb.data_ptr(), x.data_ptr(), w1k.data_ptr(), b1.data_ptr(),
-                w2k.data_ptr(), b2.data_ptr(), ln_s.data_ptr(),
-                ln_b.data_ptr(), film.data_ptr(), seeds.data_ptr(),
-                ws.data_ptr(), out.data_ptr(), B, T, x.shape[-1], C,
-                *_dropout_args(rate), stream)
+                x.data_ptr(), w1k.data_ptr(), b1.data_ptr(), w2k.data_ptr(),
+                b2.data_ptr(), ln_s.data_ptr(), ln_b.data_ptr(),
+                film.data_ptr(), seeds.data_ptr(), ws.data_ptr(),
+                out.data_ptr(), B, T, x.shape[-1], C, *_dropout_args(rate),
+                sum_k, stream)
         else:
             err = _kernels(c_block is not None)[1](
                 x.data_ptr(), w1k.data_ptr(), b1.data_ptr(), w2k.data_ptr(),
@@ -567,12 +691,14 @@ def conv_ff_forward_cuda(x, w1k, b1, w2k, b2, ln_s, ln_b, film, seeds,
 
 def conv_ff_backward_cuda(x, w1k, b1, w2k, b2, ln_s, ln_b, film, seeds, g,
                           rate, dot_dtype, c_block=None,
-                          reversed_weights=None):
+                          reversed_weights=None, sum_k=TC_SUM_K):
     """K3's backward kernels, or K4's with ``c_block`` (the tensor-core
-    instance where the plan names it), on kernel-layout weights as
-    :func:`conv_ff_forward_cuda` takes them and their tap-reversed
-    transposes (w1r, w2r) (made here where None): float32 (dx, dw1 (3, E,
-    C), db1, dw2 (3, C, E), db2, dln_s, dln_b, dfilm)."""
+    instance where the plan names it), on the weights
+    :func:`conv_ff_forward_cuda` takes and their tap-reversed transposes
+    (w1r, w2r): the images of :func:`tc_weights` for the tensor-core
+    instance, the kernel layout for the CUDA-core one (made here where
+    None): float32 (dx, dw1 (3, E, C), db1, dw2 (3, C, E), db2, dln_s,
+    dln_b, dfilm)."""
     B, T, C, tensor_core = _check_cuda(x, w1k, b1, w2k, b2, ln_s, ln_b, film,
                                        seeds, dot_dtype, g, c_block,
                                        reversed_weights)
@@ -593,13 +719,13 @@ def conv_ff_backward_cuda(x, w1k, b1, w2k, b2, ln_s, ln_b, film, seeds, g,
         capturing = torch.cuda.is_current_stream_capturing()
         stream = torch.cuda.current_stream().cuda_stream
         if tensor_core:
-            xb, ws = _tc_scratch(x, C, True)
+            ws = _tc_scratch(x, C, True)
             err = _tc_kernels()[2](
-                xb.data_ptr(), x.data_ptr(), w1k.data_ptr(), b1.data_ptr(),
-                w2k.data_ptr(), b2.data_ptr(), ln_s.data_ptr(),
-                ln_b.data_ptr(), film.data_ptr(), seeds.data_ptr(),
-                g.data_ptr(), w1r.data_ptr(), w2r.data_ptr(), ws.data_ptr(),
-                *grads, B, T, E, C, *_dropout_args(rate), stream)
+                x.data_ptr(), w1k.data_ptr(), b1.data_ptr(), w2k.data_ptr(),
+                b2.data_ptr(), ln_s.data_ptr(), ln_b.data_ptr(),
+                film.data_ptr(), seeds.data_ptr(), g.data_ptr(),
+                w1r.data_ptr(), w2r.data_ptr(), ws.data_ptr(), *grads, B, T,
+                E, C, *_dropout_args(rate), sum_k, stream)
         else:
             wsize, _, bwd = _kernels(c_block is not None)
             shape = _shape_args(x, C, c_block)

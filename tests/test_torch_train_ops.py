@@ -40,7 +40,8 @@ from daft_exprt_tpu_torch.ops.conv_ff_train import (
     SMEM_BYTES, blocked_smem_bytes, conv_ff_blocked_plain,
     conv_ff_blocked_plain_backward, conv_ff_plain, conv_ff_plain_backward,
     conv_ff_train, conv_ff_train_blocked, kernel_weights, plan_conv_ff,
-    plan_conv_ff_blocked, plan_conv_ff_train, tc_weights)
+    plan_conv_ff_blocked, plan_conv_ff_train, tc_launch_plan, tc_weights,
+    tc_workspace_bytes, unpack_image)
 from daft_exprt_tpu_torch.ops.gaussian_upsampling import normalize
 from daft_exprt_tpu_torch.ops.grad_reversal import gradient_reversal
 
@@ -386,11 +387,11 @@ def test_plan_conv_ff_picks_the_jax_kernel(monkeypatch, shape):
 @pytest.mark.parametrize("T_,C_", [(768, 1024), (128, 1024), (40, 1024),
                                    (2048, 1024), (64, 256)])
 def test_plan_conv_ff_train_bf16_takes_tensor_cores(T_, C_):
-    """K3 at bf16 dots runs the tensor-core instance that K4 runs (one C
-    block): 128-row tiles, its 109,536 bytes of shared memory at E=128,
-    at every training shape T."""
+    """K3 at bf16 dots runs the tensor-core instance that K4 runs (all of
+    C in one pass): 128-row tiles, its 202,880 bytes of shared memory (the
+    weight gradients' ring) at E=128, at every training shape T."""
     plan = plan_conv_ff_train(T_, 128, C_, torch.bfloat16)
-    assert plan == ("tensor_core", 128, 109536)
+    assert plan == ("tensor_core", 128, 202880)
     assert plan == plan_conv_ff_blocked(T_, 128, C_, 128, torch.bfloat16)
 
 
@@ -405,8 +406,11 @@ def test_plan_conv_ff_train_cuda_cores(C_, dtype):
     plan = plan_conv_ff_train(768, 128, C_, dtype)
     assert plan.instance == "cuda_core" and plan.rows == 32
     assert plan.smem_bytes <= SMEM_BYTES
-    assert plan_conv_ff_train(768, 128, C_ - 64, dtype).smem_bytes \
-        < plan.smem_bytes
+    # 128 channels fewer: still no multiple of 128 (the CUDA-core instance
+    # at bf16 too)
+    smaller = plan_conv_ff_train(768, 128, C_ - 128, dtype)
+    assert smaller.instance == "cuda_core"
+    assert smaller.smem_bytes < plan.smem_bytes
 
 
 def test_tc_weights_are_the_rounded_kernel_weights_made_once(rng_np):
@@ -423,13 +427,15 @@ def test_tc_weights_are_the_rounded_kernel_weights_made_once(rng_np):
     for got, want in ((made.w1, w1k), (made.w2, w2k),
                       (made.w1r, w1k.flip(0).transpose(1, 2)),
                       (made.w2r, w2k.flip(0).transpose(1, 2))):
-        assert torch.equal(got.float(), want)
+        assert got.shape == (want.shape[2] // 128, want.shape[1] // 64, 3,
+                             8, 128, 8)
+        assert torch.equal(unpack_image(got).float(), want)
     assert tc_weights(w1, w2) is made
     with torch.no_grad():
         w2.add_(1.0)  # as the optimizer updates it
     again = tc_weights(w1, w2)
     assert again is not made
-    assert torch.equal(again.w2.float(),
+    assert torch.equal(unpack_image(again.w2).float(),
                        kernel_weights(w1, w2, torch.bfloat16)[1])
     other = torch.nn.Parameter(w2.detach().clone())
     assert tc_weights(w1, other) is not again
@@ -707,13 +713,18 @@ K4_WIDTHS = [128, 256, 384, 512]
 @pytest.mark.parametrize("E_", K4_WIDTHS)
 def test_plan_conv_ff_blocked_bf16_takes_tensor_cores(E_):
     plan = plan_conv_ff_blocked(768, E_, 512, 128, torch.bfloat16)
-    # the conv GEMM's ring: 3 stages of (128 + 2) operand rows x 32
-    # channels and 3 taps x 32 x 128 weights, bf16 rows padded by 8; the
-    # weight gradients' ring (2 x 64 + 2 rows x 128) and the backward row
-    # kernel's 8 warps x 5 float32 sums of E are smaller
-    conv = 3 * (130 * 40 + 3 * 32 * 136) * 2
-    assert 3 * (130 * 136) * 2 < conv and 8 * 5 * E_ * 4 < conv
-    assert plan == ("tensor_core", 128, conv)
+    # the weight gradients' ring, the largest: 8 stages of 8 + 16 channel
+    # groups x 66 rows (a 64-row chunk with its halo) of 16 bytes, with 16
+    # mbarriers; the conv GEMMs' ring (3 stages of 2 x 66 operand rows x 64
+    # channels and 3 taps x 64 x 128 weights, bf16, 6 mbarriers) with
+    # conv_c's 8 warps x 128 float32 db1 sums is smaller, and conv_e's
+    # partial tile (128 x 136 float32) with the backward's 8 warps x 5 sums
+    # of E goes over the drained conv ring
+    wgrad = 8 * (8 + 16) * 66 * 16 + 8 * 16
+    ring = 3 * (2 * 66 * 64 + 3 * 64 * 128) * 2 + 3 * 16
+    assert ring + 8 * 128 * 4 < wgrad
+    assert 128 * 136 * 4 + 8 * 5 * E_ * 4 <= ring - 3 * 16
+    assert plan == ("tensor_core", 128, wgrad)
     assert plan.smem_bytes <= SMEM_BYTES
 
 
@@ -729,6 +740,7 @@ def test_plan_conv_ff_blocked_f32_takes_cuda_cores(E_):
     pytest.param(128, 512, 512, 128, id="wide_symbol_rate"),
     pytest.param(40, 512, 512, 128, id="edge_T40_short_row"),
     pytest.param(64, 256, 256, 128, id="edge_E256"),
+    pytest.param(100, 384, 384, 128, id="edge_E384"),
     pytest.param(64, 512, 128, 128, id="edge_single_block")])
 def test_plan_conv_ff_blocked_fits_every_k4_shape(T_, E_, C_, cb):
     assert plan_conv_ff(T_, E_, C_, 3) == cb
@@ -802,3 +814,245 @@ def test_shifted_matmul_conv_bf16_grads_match_jax(k, x_dtype):
     n = B * L
     bound = 2 * (n - 1) * 2.0 ** -24 * np.abs(g).reshape(n, -1).sum(0)
     assert (np.abs(db.numpy() - np.asarray(jgrads["b"])) <= bound).all()
+
+
+# ----------------------------------------------------------------------
+# The tensor-core instance of K3 and K4 (csrc/conv_ff_blocked_tc.cu on the
+# wgmma cores of csrc/conv_ff_wgmma.cuh): its launch plan, weight images
+# and sum order, without a card
+# ----------------------------------------------------------------------
+# (B, T, E, C) of chip_smoke.py's K3_SHAPES and K4_SHAPES, and one more
+TC_SHAPES = [
+    pytest.param(16, 768, 128, 1024, id="frame_rate"),
+    pytest.param(16, 128, 128, 1024, id="symbol_rate"),
+    pytest.param(2, 40, 128, 1024, id="edge_T40"),
+    pytest.param(2, 2048, 128, 1024, id="edge_T2048"),
+    pytest.param(16, 768, 512, 512, id="wide_frame_rate"),
+    pytest.param(16, 128, 512, 512, id="wide_symbol_rate"),
+    pytest.param(2, 40, 512, 512, id="edge_T40_short_row"),
+    pytest.param(2, 64, 256, 256, id="edge_E256"),
+    pytest.param(2, 100, 384, 384, id="edge_E384"),
+    pytest.param(2, 64, 512, 128, id="edge_single_block"),
+    pytest.param(4, 300, 384, 768, id="E384_C768")]
+H100_SMEM = 232448  # dynamic shared memory one block may take
+
+
+def _mirror_least_load(n, hi):
+    """Independent of the port: the count s in [1, hi] minimizing
+    ceil(n s / 132) / s, compared as fractions, the first on a tie."""
+    from fractions import Fraction
+    loads = [Fraction(-(-n * s // 132), s) for s in range(1, hi + 1)]
+    return loads.index(min(loads)) + 1
+
+
+@pytest.mark.parametrize("B_,T_,E_,C_", TC_SHAPES)
+def test_tc_launch_plan_mirrors_the_kernel_constants(B_, T_, E_, C_):
+    """The plan from the kernel's constants: 128 x 128 tiles; images of
+    (B, chunks, K/8, 66, 8) bf16, two 64-row chunks (66 rows stored) a
+    128-row tile; a conv stage of 2 chunks x 8 groups x 66 rows x 16 bytes
+    and 3 taps x 64 x 128 bf16 weights, 3 stages and 6 mbarriers of 8
+    bytes, conv_c's 8 warps x 128 f32 db1 sums; a weight-gradient stage of
+    a chunk of 8 + 16 groups, 8 stages; clusters of at most 8 blocks
+    (conv_e: E / 128 column tiles x the splits of C's 64-channel chunks,
+    at least 4 chunks a split;
+    wgrad: the splits of the 64-row chunks of 2 (E / 64)(C / 128) tiles of
+    64 x 128 and three taps)."""
+    conv_stage = 2 * 8 * 66 * 16 + 3 * 64 * 128 * 2
+    conv_ring = 3 * conv_stage + 3 * 2 * 8
+    wgrad_stage = (8 + 16) * 66 * 16
+    smem = (conv_ring + 8 * 128 * 4, conv_ring, 8 * wgrad_stage + 8 * 2 * 8)
+    rt = (T_ + 127) // 128
+    splits = _mirror_least_load(E_ // 128 * rt * B_,
+                                max(1, min(8 // (E_ // 128), C_ // 256)))
+    w_cluster = _mirror_least_load(2 * (E_ // 64) * (C_ // 128),
+                                   min(8, B_ * ((T_ + 63) // 64)))
+    plan = tc_launch_plan(B_, T_, E_, C_)
+    assert plan == (rt, 2 * rt * 66, splits, E_ // 128 * splits, w_cluster,
+                    min(C_ // 128 * rt * B_, 132), *smem)
+    assert max(smem) <= H100_SMEM and max(smem) <= SMEM_BYTES
+    assert plan.e_cluster <= 8 and plan.w_cluster <= 8
+    # every split keeps a chunk of K
+    assert plan.e_splits <= max(1, C_ // 256)
+    assert plan.w_cluster <= B_ * ((T_ + 63) // 64)
+    assert plan_conv_ff_blocked(T_, E_, C_, 128, torch.bfloat16).smem_bytes \
+        == max(smem)
+
+    def aligned(n):
+        return (n + 255) // 256 * 256
+
+    rows = B_ * plan.image_rows
+    fwd = aligned(2 * rows * E_) + aligned(2 * rows * C_)
+    parts = B_ * rt * plan.e_cluster
+    bwd = fwd + sum(aligned(n) for n in (
+        2 * rows * E_, 2 * rows * C_, 4 * B_ * T_ * E_, 4 * parts * 3 * E_,
+        4 * parts * 2 * E_, 4 * B_ * rt * C_))
+    assert tc_workspace_bytes(B_, T_, E_, C_, False) == fwd
+    assert tc_workspace_bytes(B_, T_, E_, C_, True) == bwd
+
+
+@pytest.mark.parametrize("N_,K_", [(1024, 128), (128, 1024), (512, 512),
+                                   (256, 384), (24, 16)])
+def test_weight_images_unpack_to_the_kernel_weights(rng_np, N_, K_):
+    """pack_image's image, unpacked, is the rounded kernel-layout weight
+    (3, K, N) bit for bit; a block of the image is [k // 8][n][k % 8] of
+    one tap's 64 x 128 slice; widths the instance does not take are padded
+    with zeros."""
+    from daft_exprt_tpu_torch.ops.conv_ff_train import pack_image
+    w = _t(rng_np.standard_normal((N_, K_, 3)).astype(np.float32))
+    img = pack_image(w)
+    assert img.dtype == torch.bfloat16 and img.is_contiguous()
+    assert img.shape == (-(-N_ // 128), -(-K_ // 64), 3, 8, 128, 8)
+    want = w.permute(2, 1, 0).to(torch.bfloat16)
+    assert torch.equal(unpack_image(img, K_, N_), want)
+    assert not unpack_image(img)[:, K_:].any()
+    assert not unpack_image(img)[:, :, N_:].any()
+    if N_ >= 128 and K_ >= 64:  # tap 2, K rows 8 .. 15, column 5
+        assert torch.equal(img[0, 0, 2, 1, 5], want[2, 8:16, 5])
+
+
+def _tc_conv(a, w, splits):
+    """A k=3 SAME conv as the instance sums it: a fresh f32 partial for
+    each (64-channel chunk, tap), added in that order within a split, the
+    splits' sums added in rank order; a (B, T, K), w (3, K, N)."""
+    from daft_exprt_tpu_torch.ops.conv_ff_train import _shifts
+    xs, chunks = _shifts(a), a.shape[-1] // 64
+    total = None
+    for s in range(splits):
+        acc = torch.zeros(a.shape[:-1] + (w.shape[-1],))
+        for c in range(s * chunks // splits, (s + 1) * chunks // splits):
+            for d in range(3):
+                acc = acc + xs[d][..., 64 * c:64 * c + 64] @ \
+                    w[d, 64 * c:64 * c + 64]
+        total = acc if total is None else total + acc
+    return total
+
+
+def _tc_wgrad(a, g, splits):
+    """dW[d] = shift_d(a)^T g as the instance sums it: a fresh f32 partial
+    for each 64-row chunk of each batch row, in order within a split of
+    the chunks, the splits added in rank order."""
+    from daft_exprt_tpu_torch.ops.conv_ff_train import _shifts
+    B_, T_ = a.shape[:2]
+    chunks = [(b, t0) for b in range(B_) for t0 in range(0, T_, 64)]
+    out = []
+    for shifted in _shifts(a):
+        total = None
+        for s in range(splits):
+            acc = torch.zeros((a.shape[-1], g.shape[-1]))
+            for b, t0 in chunks[s * len(chunks) // splits:
+                                (s + 1) * len(chunks) // splits]:
+                acc = acc + shifted[b, t0:t0 + 64].t() @ g[b, t0:t0 + 64]
+            total = acc if total is None else total + acc
+        out.append(total)
+    return torch.stack(out)
+
+
+def _tc_emulation(x, w1, b1, w2, b2, ls, lb, film, seeds, g, rate, dot):
+    """K3/K4's function at ``dot`` dots in the tensor-core instance's sum
+    order (tc_launch_plan's splits), the row work as the plain version's:
+    (out, dx, dw1, db1, dw2, db2, dln_s, dln_b, dfilm) in the port's
+    layouts."""
+    from daft_exprt_tpu_torch.ops.attention_train import (dropout_threshold,
+                                                          keep_mask)
+    B_, T_, E_ = x.shape
+    C_ = w1.shape[0]
+    plan = tc_launch_plan(B_, T_, E_, C_)
+    w1k, w2k = kernel_weights(w1, w2, dot)
+    rnd = lambda t: t.to(dot).float()  # noqa: E731
+    xc = rnd(x)
+    a1 = _tc_conv(xc, w1k, 1) + b1
+    h = rnd(torch.relu(a1))
+    a2 = _tc_conv(h, w2k, plan.e_splits) + b2
+    keep = None
+    if rate > 0:
+        keep = keep_mask(seeds[:, None, None], 0, 0, x.shape[1:],
+                         dropout_threshold(rate))
+        a2 = torch.where(keep, a2 / (1 - rate), 0.0)
+    r = a2 + x
+    mean = r.mean(-1, keepdim=True)
+    inv = torch.rsqrt((r - mean).square().mean(-1, keepdim=True) + 1e-5)
+    n = (r - mean) * inv
+    y = n * ls + lb
+    out = film[:, None, :E_] * y + film[:, None, E_:]
+    dy = g * film[:, None, :E_]
+    dn = dy * ls
+    dr = (dn - dn.mean(-1, keepdim=True)
+          - n * (dn * n).mean(-1, keepdim=True)) * inv
+    da2 = dr if keep is None else torch.where(keep, dr / (1 - rate), 0.0)
+    da2c = rnd(da2)
+    da1 = torch.where(a1 > 0, _tc_conv(da2c, w2k.flip(0).transpose(1, 2), 1),
+                      0.0)
+    da1c = rnd(da1)
+    dx = dr + _tc_conv(da1c, w1k.flip(0).transpose(1, 2), plan.e_splits)
+    dw1 = _tc_wgrad(xc, da1c, plan.w_cluster)
+    dw2 = _tc_wgrad(h, da2c, plan.w_cluster)
+    # the vector gradients: partials of 128-row tiles (db1) or of each
+    # cluster rank's share of a tile's rows, added in order
+    per = -(-128 // plan.e_cluster)
+    shares = [(b, lo + o, min(lo + o + per, lo + 128, T_))
+              for b in range(B_) for lo in range(0, T_, 128)
+              for o in range(0, 128, per)]
+
+    def ordered(terms, pieces):
+        total = torch.zeros(terms.shape[-1])
+        for b, t0, t1 in pieces:
+            total = total + terms[b, t0:t1].sum(0) if t1 > t0 else total
+        return total
+
+    tiles = [(b, lo, min(lo + 128, T_)) for b in range(B_)
+             for lo in range(0, T_, 128)]
+    db1 = ordered(da1, tiles)
+    vec = [ordered(t, shares) for t in (dy * n, dy, da2)]
+    dfilm = torch.stack([torch.cat([
+        ordered(t, [p for p in shares if p[0] == b]) for t in (g * y, g)])
+        for b in range(B_)])
+    return (out, dx, dw1.permute(2, 1, 0), db1, dw2.permute(2, 1, 0),
+            vec[2], vec[0], vec[1], dfilm)
+
+
+@pytest.mark.parametrize("kernel,E_,C_,T_,rate,dot", [
+    pytest.param("K3", 128, 256, 40, 0.0, "bfloat16", id="K3-bf16-0.0"),
+    pytest.param("K3", 128, 256, 40, 0.1, "bfloat16", id="K3-bf16-0.1"),
+    pytest.param("K4", 256, 256, 24, 0.1, "bfloat16", id="K4-bf16-0.1"),
+    pytest.param("K3", 128, 256, 40, 0.1, "float32", id="K3-f32-0.1"),
+    pytest.param("K4", 256, 256, 24, 0.1, "float32", id="K4-f32-0.1")])
+def test_tc_sum_order_matches_jax(kernel, E_, C_, T_, rate, dot):
+    """The tensor-core instance's sum order, emulated in torch (fresh f32
+    partials a k64 chunk or 64-row chunk, the split and tile partials added
+    in the kernel's fixed order), against the JAX kernels in interpret mode
+    and their VJP. At float32 dots under tests/test_conv_ff_train.py's
+    tolerances (K3 2e-4 forward, K4 2e-5; 3e-4 gradients); at bf16 dots
+    the relative L2 bound of K4's plain version (BF16_REL_L2): there a sum
+    order other than XLA's moves a few values of da1 or da2 across a bf16
+    rounding boundary, and each such flip moves a weight-gradient element
+    by a bf16 ulp of da1 times x (the plain version, whose order is
+    neither, is as far from JAX at these shapes: 1e-7 to 3e-5)."""
+    jparams, x, g, film, seeds = _blocked_inputs(E_ + C_ + T_, T_, C_, E_)
+    w1, b1, w2, b2, ls, lb = jparams
+    jargs = (jnp.asarray(x), jnp.asarray(w1), jnp.asarray(b1)[None],
+             jnp.asarray(w2), jnp.asarray(b2)[None], jnp.asarray(ls)[None],
+             jnp.asarray(lb)[None], jnp.asarray(film)[:, None])
+    jdot = DOTS[dot][1]
+    if kernel == "K3":
+        fn = lambda *a: jax_conv_ff(*a, jnp.asarray(seeds), rate,  # noqa
+                                    jdot, True)
+    else:
+        fn = lambda *a: jax_conv_ff_blocked(  # noqa: E731
+            *a, jnp.asarray(seeds), rate, 128, jdot, True)
+    want, vjp = jax.vjp(fn, *jargs)
+    want_grads = vjp(jnp.asarray(g))
+    got = _tc_emulation(_t(x), *(_t(a) for a in _port_params(jparams)),
+                        _t(film), _t(seeds), _t(g), rate, DOTS[dot][0])
+    port = [got[1], got[2].permute(2, 1, 0), got[3], got[4].permute(2, 1, 0),
+            got[5], got[6], got[7], got[8]]
+    pairs = [("out", got[0].numpy(), np.asarray(want))] + [
+        (name, a.numpy(), np.asarray(w).reshape(a.shape))
+        for name, a, w in zip(GRAD_NAMES, port, want_grads)]
+    if dot == "bfloat16":
+        errs = {name: _rel_l2(a, w) for name, a, w in pairs}
+        assert all(e <= BF16_REL_L2["K4"] for e in errs.values()), errs
+        return
+    tol_f = 2e-4 if kernel == "K3" else 2e-5
+    for name, a, w in pairs:
+        tol = tol_f if name == "out" else 3e-4
+        np.testing.assert_allclose(a, w, rtol=tol, atol=tol, err_msg=name)

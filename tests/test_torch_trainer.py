@@ -33,7 +33,7 @@ from daft_exprt_tpu_torch import checkpoint as inference_checkpoint
 from daft_exprt_tpu_torch.config import HyperParams
 from daft_exprt_tpu_torch.convert import state_dict_from_jax
 from daft_exprt_tpu_torch.models.daft_exprt import DaftExprt
-from daft_exprt_tpu_torch.ops.conv_ff_train import tc_weights
+from daft_exprt_tpu_torch.ops.conv_ff_train import tc_weights, unpack_image
 from daft_exprt_tpu_torch.training import logger, trainer
 from daft_exprt_tpu_torch.training.checkpoint import (AsyncSaver,
                                                       load_checkpoint)
@@ -388,8 +388,9 @@ def test_a_forward_after_a_step_sees_the_new_weights(corpus, tmp_path):
                                rtol=0, atol=0)
     assert not torch.equal(new, old)
     now = tc_weights(w1, w2).w1
-    torch.testing.assert_close(now, w1.detach().permute(2, 1, 0).to(
-        torch.bfloat16), rtol=0, atol=0)
+    torch.testing.assert_close(unpack_image(now, w1.shape[1], w1.shape[0]),
+                               w1.detach().permute(2, 1, 0).to(
+                                   torch.bfloat16), rtol=0, atol=0)
     assert not torch.equal(now, cached)
 
 
