@@ -1,0 +1,20 @@
+"""K3's (the training conv feed-forward's) share of its roofline in the
+profiled training steps: the bound of every forward and backward call at
+its real lengths (``work/k3.py``) over the union of K3's device
+intervals."""
+
+from harness import readers
+
+
+def read(record, sl):
+    if sl is None or not sl.work.get("steps"):
+        return None
+    calls = []
+    for step in sl.work["steps"]:
+        for L, T, ins, outs in step:
+            for module, blocks, E, H, C in readers.fft_blocks(
+                    record["config"]):
+                n, lens = (L, ins) if module == "phoneme_encoder" \
+                    else (T, outs)
+                calls += [(lens, n, E, C)] * blocks
+    return readers.share(readers.k3_bound_s(calls), sl, "k3")
